@@ -1,19 +1,67 @@
-"""Batched preprocessing of the serving path (port of mde_tpu/data/transforms.py).
+"""Batched preprocessing of the serving and training paths (port of
+mde_tpu/data/transforms.py).
 
-``preprocess_eval`` = Resize + ToTensor + ImageNet Normalize of the
-reference's test transform. On a CUDA tensor it is one kernel
-(``ops.kernels.preprocess_u8``); on the CPU, that kernel's plain version. The
-depth-target resize and the training pipelines (colour jitter, PairAug) come
-with the training slice.
+- ``preprocess_eval`` = Resize + ToTensor + ImageNet Normalize of the
+  reference's test transform (src/main.py:585-589), plus the align-corners
+  depth-target resize (src/main.py:37-48) when given depth. On a CUDA tensor
+  the image part is one kernel (``ops.kernels.preprocess_u8``); on the CPU,
+  that kernel's plain version.
+- ``preprocess_train`` = the default train path, Resize + ColorJitter(0.2,
+  0.2, 0.2, 0.1) + ToTensor + Normalize (src/main.py:578-583), then the depth
+  resize. It runs as plain PyTorch on either device: the jitter sits between
+  the resize and the normalisation that ``preprocess_u8`` fuses, so that
+  kernel is not on the train step (a fused form with the jitter inside is a
+  ROADMAP follow-up).
+
+The PairAug path (``augmentation: True``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..ops.kernels import preprocess_u8
+from ..ops.image import color_jitter, normalize_imagenet, to_float
+from ..ops.kernels import preprocess_u8, resize_half_pixel
+from ..ops.resize import resize_bilinear
 
 
-def preprocess_eval(rgb_u8: torch.Tensor, input_size=(448, 576)) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> (B, 3, *input_size) normalised float32 NCHW."""
-    return preprocess_u8(rgb_u8, tuple(int(s) for s in input_size))
+def _size(input_size) -> tuple[int, int]:
+    return int(input_size[0]), int(input_size[1])
+
+
+def resize_depth(depth: torch.Tensor, input_size) -> torch.Tensor:
+    """(B, H, W) float32 depth -> (B, *input_size), align-corners bilinear."""
+    return resize_bilinear(depth.to(torch.float32), _size(input_size), align_corners=True)
+
+
+def preprocess_eval(rgb_u8: torch.Tensor, depth: torch.Tensor | None = None,
+                    input_size=(448, 576)):
+    """(B, H, W, 3) uint8 -> (B, 3, *input_size) normalised float32 NCHW;
+    with ``depth`` (B, H, W), returns (rgb, resized depth)."""
+    rgb = preprocess_u8(rgb_u8, _size(input_size))
+    if depth is None:
+        return rgb
+    return rgb, resize_depth(depth, input_size)
+
+
+def preprocess_train(rgb_u8: torch.Tensor, depth: torch.Tensor, input_size=(448, 576),
+                     generator: torch.Generator | None = None):
+    """(B, H, W, 3) uint8 and (B, H, W) depth -> (rgb (B, 3, *input_size)
+    float32, depth (B, *input_size)): half-pixel resize with the JAX rounding,
+    colour jitter with draws from ``generator``, ImageNet normalisation."""
+    size = _size(input_size)
+    rgb = resize_half_pixel(to_float(rgb_u8).permute(0, 3, 1, 2), size)
+    rgb = color_jitter(rgb, 0.2, 0.2, 0.2, 0.1, generator=generator)
+    return normalize_imagenet(rgb).contiguous(), resize_depth(depth, size)
+
+
+def make_train_pipeline(augmentation: bool, input_size):
+    """fn(rgb_u8, depth, generator) -> (rgb, depth) per the config switch
+    (src/main.py:575-583)."""
+    if augmentation:
+        raise NotImplementedError(
+            "augmentation: True (PairAug) is not ported to mde_tpu_torch yet "
+            "(ROADMAP.md, Queue 1: the augmentation path)")
+    return functools.partial(preprocess_train, input_size=_size(input_size))

@@ -1,18 +1,23 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain version.
+"""Hand-written CUDA kernels of the serving and training paths, each beside
+its plain version.
 
-Port of mde_tpu/ops/pallas_kernels.py. Two kernels live in
+Port of mde_tpu/ops/pallas_kernels.py. The kernels live in
 ``mde_tpu_torch/csrc`` and are built with ``nvcc`` into one shared library with
 a plain C interface, loaded with ``ctypes``:
 
 - ``window_attention`` (csrc/window_attention.cu) replaces
-  ``window_attention_fused`` (pallas_kernels.py:163-225);
+  ``window_attention_fused`` (pallas_kernels.py:163-225), in float32 and in
+  bfloat16 (the mixed-precision train step);
+- ``si_loss_sums`` (csrc/si_loss.cu) replaces ``si_loss_sums``
+  (pallas_kernels.py:56-144), forward and backward;
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
   precedes it in ``preprocess_eval``.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
-kernel or raises. Each counts its launches in a ``launches`` attribute.
+kernel or raises. Each counts its launches in a ``launches`` attribute
+(``bf16_launches`` and ``backward_launches`` for the other forms).
 
 The library is built at first use into ``mde_tpu_torch/_build`` (listed in
 .gitignore), named by a hash of the sources and flags, so an edited source is
@@ -39,7 +44,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")  # per source, with -c
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -57,7 +63,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags is (or will be) built."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -65,21 +71,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library unless it exists."""
+    """Compile every ``csrc/*.cu`` into one shared library unless it exists:
+    one ``nvcc -c`` per source, all started together, then one link."""
     global build_seconds
     so = library_path()
     if so.exists():
         return so
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC_DIR.glob("*.cu")))]
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objects)]
+        errors = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build in another process sees all or nothing
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    os.replace(tmp, so)  # atomic: a concurrent build in another process sees all or nothing
     return so
 
 
@@ -92,6 +116,13 @@ def load():
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.mde_window_attention_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
             lib.mde_window_attention_f32.restype = i
+            lib.mde_window_attention_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+            lib.mde_window_attention_bf16.restype = i
+            ll = ctypes.c_longlong
+            lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, p, i, ll, f, p]
+            lib.mde_si_loss_sums_f32.restype = i
+            lib.mde_si_loss_backward_f32.argtypes = [p, p, p, p, p, p, i, ll, f, p]
+            lib.mde_si_loss_backward_f32.restype = i
             lib.mde_preprocess_u8_f32.argtypes = [p, p, i, i, i, i, i, f, f, f, f, f, f, p]
             lib.mde_preprocess_u8_f32.restype = i
             lib.mde_error_string.argtypes = [i]
@@ -124,8 +155,10 @@ def window_attention_plain(qw, kw, vw, num_heads: int, key_valid):
     """Plain version: batched einsum attention per window (the math of
     mde_tpu/ops/window_attention.py::_xla_window_attention).
 
-    qw/kw/vw: (B, N, T, C); key_valid: (N, T), > 0 for a real token.
-    Logits and softmax in float32; the output is in ``vw``'s dtype.
+    qw/kw/vw: (B, N, T, C) float32 or bfloat16; key_valid: (N, T), > 0 for a
+    real token. Logits, softmax and the weighted sum in float32, with autocast
+    off so they stay so inside a bf16 region, as in the kernel; the output is
+    rounded once to ``vw``'s dtype. It is the reference of both kernel forms.
     """
     b, n, t, c = qw.shape
     hd = c // num_heads
@@ -133,12 +166,13 @@ def window_attention_plain(qw, kw, vw, num_heads: int, key_valid):
     def split(x):
         return x.reshape(b, n, t, num_heads, hd).float()
 
-    logits = torch.einsum("bnqhd,bnkhd->bnhqk", split(qw), split(kw)) * hd**-0.5
-    key_mask = (key_valid > 0)[None, :, None, None, :]
-    logits = torch.where(key_mask, logits, torch.finfo(torch.float32).min)
-    attn = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    attn = attn / attn.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, split(vw))
+    with torch.autocast(qw.device.type, enabled=False):
+        logits = torch.einsum("bnqhd,bnkhd->bnhqk", split(qw), split(kw)) * hd**-0.5
+        key_mask = (key_valid > 0)[None, :, None, None, :]
+        logits = torch.where(key_mask, logits, torch.finfo(torch.float32).min)
+        attn = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        attn = attn / attn.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, split(vw))
     return out.reshape(b, n, t, c).to(vw.dtype)
 
 
@@ -152,8 +186,11 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid):
              f"window_attention: q/k/v must share a (B, N, T, C) shape, got "
              f"{tuple(qw.shape)}, {tuple(kw.shape)}, {tuple(vw.shape)}")
     b, n, t, c = qw.shape
-    _require(all(x.dtype == torch.float32 for x in (qw, kw, vw, key_valid)),
-             "window_attention: the kernel takes float32 q/k/v/key_valid")
+    dtype = qw.dtype
+    _require(dtype in (torch.float32, torch.bfloat16) and kw.dtype == vw.dtype == dtype
+             and key_valid.dtype == torch.float32,
+             "window_attention: the kernel takes q/k/v all float32 or all bfloat16 and "
+             f"float32 key_valid, got {qw.dtype}, {kw.dtype}, {vw.dtype}, {key_valid.dtype}")
     _require(all(x.is_contiguous() for x in (qw, kw, vw, key_valid)),
              "window_attention: inputs must be contiguous")
     _require(tuple(key_valid.shape) == (n, t),
@@ -166,11 +203,15 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid):
              f"window_attention: head_dim {hd} at T={t} exceeds the kernel's shared memory")
     out = torch.empty_like(vw)
     lib = load()
-    err = lib.mde_window_attention_f32(
-        qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        b, n, t, c, num_heads, hd**-0.5, _stream(qw))
+    bf16 = dtype == torch.bfloat16
+    fn = lib.mde_window_attention_bf16 if bf16 else lib.mde_window_attention_f32
+    err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+             b, n, t, c, num_heads, hd**-0.5, _stream(qw))
     _check(lib, err, "window_attention")
-    window_attention.launches += 1
+    if bf16:
+        window_attention.bf16_launches += 1
+    else:
+        window_attention.launches += 1
     return out
 
 
@@ -200,7 +241,114 @@ def window_attention(qw, kw, vw, num_heads: int, key_valid):
     return _WindowAttention.apply(qw, kw, vw, num_heads, key_valid)
 
 
-window_attention.launches = 0
+window_attention.launches = 0  # float32 kernel
+window_attention.bf16_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: per-sample sums of the scale-invariant log difference
+# ---------------------------------------------------------------------------
+
+
+def si_loss_sums_plain(pred, target, eps: float = 1e-6):
+    """Plain version: per-sample (sum d, sum d^2), d = log(pred+eps) - log(target+eps).
+
+    pred/target: (B, ...) -> two (B,) float32 vectors. Differentiable through
+    torch's autograd.
+    """
+    b = pred.shape[0]
+    d = torch.log(pred.reshape(b, -1).float() + eps) - torch.log(target.reshape(b, -1).float() + eps)
+    return d.sum(dim=1), (d * d).sum(dim=1)
+
+
+def si_loss_sums_backward_plain(pred, target, g1, g2, eps: float, need_target: bool):
+    """Plain version of the backward, the math of ``_si_sums_bwd``
+    (pallas_kernels.py:130-141): d recomputed, dtarget only when needed."""
+    shape = (pred.shape[0],) + (1,) * (pred.dim() - 1)
+    g1, g2 = g1.reshape(shape), g2.reshape(shape)
+    d = torch.log(pred + eps) - torch.log(target + eps)
+    common = g1 + 2.0 * d * g2
+    dtarget = -common / (target + eps) if need_target else None
+    return common / (pred + eps), dtarget
+
+
+def _si_flat(pred, target, name: str):
+    _require(pred.device.type == "cuda", f"{name}: unsupported device {pred.device}")
+    _require(target.device == pred.device, f"{name}: pred and target must be on one device")
+    _require(pred.shape == target.shape and pred.dim() >= 1,
+             f"{name}: pred and target must share a (B, ...) shape, got "
+             f"{tuple(pred.shape)}, {tuple(target.shape)}")
+    _require(pred.dtype == target.dtype == torch.float32,
+             f"{name}: the kernel takes float32, got {pred.dtype}, {target.dtype}")
+    b = pred.shape[0]
+    _require(0 < b <= 65535 and pred.numel() > 0, f"{name}: batch {b} out of the kernel's grid")
+    return pred.reshape(b, -1).contiguous(), target.reshape(b, -1).contiguous()
+
+
+def _si_loss_sums_forward(pred, target, eps: float):
+    if pred.device.type == "cpu":
+        return si_loss_sums_plain(pred, target, eps)
+    p, t = _si_flat(pred, target, "si_loss_sums")
+    b, n = p.shape
+    chunks = -(-n // 2048)
+    partial = torch.empty((2, b, chunks), dtype=torch.float32, device=p.device)
+    s1 = torch.empty(b, dtype=torch.float32, device=p.device)
+    s2 = torch.empty_like(s1)
+    lib = load()
+    err = lib.mde_si_loss_sums_f32(p.data_ptr(), t.data_ptr(), partial.data_ptr(),
+                                   s1.data_ptr(), s2.data_ptr(), b, n, eps, _stream(p))
+    _check(lib, err, "si_loss_sums")
+    si_loss_sums.launches += 1
+    return s1, s2
+
+
+def _si_loss_sums_backward(pred, target, g1, g2, eps: float, need_target: bool):
+    if pred.device.type == "cpu":
+        return si_loss_sums_backward_plain(pred, target, g1, g2, eps, need_target)
+    p, t = _si_flat(pred, target, "si_loss_sums backward")
+    b, n = p.shape
+    g1 = g1.to(torch.float32).contiguous()
+    g2 = g2.to(torch.float32).contiguous()
+    _require(g1.shape == g2.shape == (b,) and g1.device == g2.device == p.device,
+             f"si_loss_sums backward: cotangents must be ({b},) on {p.device}")
+    dpred = torch.empty_like(p)
+    dtarget = torch.empty_like(t) if need_target else None
+    lib = load()
+    err = lib.mde_si_loss_backward_f32(
+        p.data_ptr(), t.data_ptr(), g1.data_ptr(), g2.data_ptr(), dpred.data_ptr(),
+        dtarget.data_ptr() if need_target else None, b, n, eps, _stream(p))
+    _check(lib, err, "si_loss_sums backward")
+    si_loss_sums.backward_launches += 1
+    return dpred.view(pred.shape), dtarget.view(target.shape) if need_target else None
+
+
+class _SILossSums(torch.autograd.Function):
+    """Kernel forward and kernel backward; the backward recomputes d and
+    saves nothing else, as ``_si_sums_bwd`` does, and computes the target's
+    gradient only when it is needed (the depth target never needs it)."""
+
+    @staticmethod
+    def forward(ctx, pred, target, eps):
+        ctx.save_for_backward(pred, target)
+        ctx.eps = eps
+        return _si_loss_sums_forward(pred, target, eps)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        pred, target = ctx.saved_tensors
+        dpred, dtarget = _si_loss_sums_backward(pred, target, g1, g2, ctx.eps,
+                                                ctx.needs_input_grad[1])
+        return (dpred if ctx.needs_input_grad[0] else None), dtarget, None
+
+
+def si_loss_sums(pred, target, eps: float = 1e-6):
+    """Per-sample (sum d, sum d^2) of d = log(pred+eps) - log(target+eps),
+    (B, ...) -> (B,), (B,); differentiable. See the plain version."""
+    return _SILossSums.apply(pred, target, eps)
+
+
+si_loss_sums.launches = 0
+si_loss_sums.backward_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -224,17 +372,14 @@ def _bilinear_taps(in_size: int, out_size: int):
     return i0, i1, frac
 
 
-def preprocess_u8_plain(rgb_u8: torch.Tensor, size) -> torch.Tensor:
-    """Plain version: ``to_float`` -> half-pixel bilinear -> ``normalize_imagenet``.
-
-    (B, H, W, 3) uint8 -> (B, 3, size[0], size[1]) float32, contiguous NCHW.
-    The resize gathers the two taps of each axis and blends them (rows, then
-    columns). Bilinear weights sum to 1, so this equals the kernel's order
-    (blend the taps, then scale and normalise) up to float32 rounding.
-    """
-    x = to_float(rgb_u8).permute(0, 3, 1, 2)
+def resize_half_pixel(x: torch.Tensor, size) -> torch.Tensor:
+    """Half-pixel bilinear resize of an NCHW float tensor with the JAX
+    reference's taps (``_bilinear_taps``): gather the two taps of each axis
+    and blend them, rows then columns."""
     dev = x.device
     for axis, out_size in ((2, int(size[0])), (3, int(size[1]))):
+        if x.shape[axis] == out_size:
+            continue  # the identity in this convention (src == o)
         i0, i1, frac = _bilinear_taps(x.shape[axis], out_size)
         shape = [1, 1, 1, 1]
         shape[axis] = out_size
@@ -242,7 +387,18 @@ def preprocess_u8_plain(rgb_u8: torch.Tensor, size) -> torch.Tensor:
         a = x.index_select(axis, torch.from_numpy(i0).to(dev))
         b = x.index_select(axis, torch.from_numpy(i1).to(dev))
         x = a * (1.0 - w1) + b * w1
-    return normalize_imagenet(x).contiguous()
+    return x
+
+
+def preprocess_u8_plain(rgb_u8: torch.Tensor, size) -> torch.Tensor:
+    """Plain version: ``to_float`` -> half-pixel bilinear -> ``normalize_imagenet``.
+
+    (B, H, W, 3) uint8 -> (B, 3, size[0], size[1]) float32, contiguous NCHW.
+    Bilinear weights sum to 1, so ``resize_half_pixel`` equals the kernel's
+    order (blend the taps, then scale and normalise) up to float32 rounding.
+    """
+    x = to_float(rgb_u8).permute(0, 3, 1, 2)
+    return normalize_imagenet(resize_half_pixel(x, size)).contiguous()
 
 
 def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:

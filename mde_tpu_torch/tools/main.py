@@ -1,0 +1,116 @@
+"""Training entry point (port of mde_tpu/tools/main.py), the equivalent of the
+reference's ``python src/main.py``.
+
+    python -m mde_tpu_torch.tools.main [--config config.yaml] [--device cuda]
+        [--data-dir DIR] [--set KEY=VALUE ...]
+
+Same flow as the reference (src/main.py:529-711): the config (the built-in
+flagship defaults without --config), train/val loaders from the 85/15 split
+and a test loader, the configured model with weights from the seed (resumed
+from ``best_model_{name}.pth`` with its optimizer and early-stopping state
+when ``training.resume_training.resume``), AdamW, ``fit`` with early stopping,
+best checkpoint and wandb-schema logging, the optional 7-metric evaluation,
+then the 426x560 test predictions. Runs on one device: the mesh of the JAX
+tool is not ported (ROADMAP, "Parallel"). ``--device cuda`` without a card
+fails rather than training on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from ..train.checkpoint import checkpoint_path, load_state_dict, load_training_checkpoint
+from ..train.logging import ExperimentLogger
+from ..train.trainer import evaluate_full_suite, fit, generate_test_predictions, make_optimizer
+from .common import bootstrap_model, build_loaders, parse_config, resolve_paths
+
+
+def main(argv=None) -> dict:
+    """Run the training flow; returns ``fit``'s history."""
+    cfg, args = parse_config("Train a depth model (PyTorch port)", argv=argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible")
+    paths = resolve_paths(cfg)
+    os.makedirs(paths["results_dir"], exist_ok=True)
+    os.makedirs(paths["predictions_dir"], exist_ok=True)
+
+    current_time = time.strftime("%Y%m%d-%H%M%S")
+    resume = bool(cfg.training.resume_training.resume)
+    logger = ExperimentLogger(
+        project="MonocularDepthEstimation",
+        name=f"{cfg.experiment.model_name}_{current_time}",
+        run_id=cfg.training.resume_training.get("run_id") if resume else None,
+        resume=resume,
+        config={
+            "epochs": cfg.training.n_epoch,
+            "batch_size": cfg.training.batch_size,
+            "learning_rate": cfg.framework.learning_rate,
+            "model_name": cfg.experiment.model_name,
+            "run_time": current_time,
+            "resume_training": resume,
+            "early_stopping": {
+                "patience": cfg.training.early_stopping.patience,
+                "min_delta": cfg.training.early_stopping.min_delta,
+            },
+        },
+        disabled=bool(cfg.experiment.wandb_disable),
+        log_dir=paths["results_dir"],
+    )
+    print(f"Device: {device}"
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    loaders = build_loaders(cfg, paths, train=True, device=device)
+    print(f"Train size: {loaders['train'].num_samples}, "
+          f"Validation size: {loaders['val'].num_samples}")
+
+    model, _ = bootstrap_model(cfg, device)
+    optimizer = make_optimizer(model, cfg)
+    start_epoch = int(cfg.training.resume_training.resume_from_epoch) if resume else 0
+    es_state = {}
+    ckpt = checkpoint_path(paths["results_dir"], cfg.experiment.model_name)
+    if resume and os.path.exists(ckpt):
+        # Resume the optimizer and the early-stopping state with the weights
+        # (the reference saves them but never reads them back, src/main.py:98).
+        payload = load_training_checkpoint(ckpt)
+        load_state_dict(model, payload["model_state_dict"])
+        try:
+            optimizer.load_state_dict(payload["optimizer_state_dict"])
+        except (KeyError, ValueError):
+            print("Warning: optimizer state in checkpoint is incompatible; reinitialized.")
+        es_state = {
+            "best_val": float(payload.get("best_val_loss", float("inf"))),
+            "best_epoch": payload.get("best_epoch"),
+            "es_counter": int(payload.get("early_stopping_counter", 0)),
+        }
+        print(f"Resumed early-stopping state: best_val={es_state['best_val']:.4f} "
+              f"(epoch {es_state['best_epoch']}), counter={es_state['es_counter']}")
+
+    print("Starting training...")
+    history = fit(model, cfg, optimizer, loaders["train"], loaders["val"], paths["results_dir"],
+                  logger=logger, start_epoch=start_epoch, seed=int(cfg.framework.seed),
+                  **es_state)
+
+    if bool(cfg.opt.get("evaluate_best_model", False)):
+        print("Evaluating model on validation set...")
+        metrics = evaluate_full_suite(model, cfg, loaders["val"])
+        print("\nValidation Metrics:")
+        for name, value in metrics.items():
+            print(f"{name}: {value:.4f}")
+        with open(os.path.join(paths["results_dir"], "validation_metrics.txt"), "w") as f:
+            for name, value in metrics.items():
+                f.write(f"{name}: {value:.4f}\n")
+
+    if "test" in loaders:
+        print("Generating predictions for test set...")
+        generate_test_predictions(model, cfg, loaders["test"], paths["predictions_dir"])
+    print(f"Results saved to {paths['results_dir']}")
+    print(f"All test depth map predictions saved to {paths['predictions_dir']}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

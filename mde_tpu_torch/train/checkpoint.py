@@ -5,6 +5,10 @@ state_dict is a reference ``.pth`` and a reference ``.pth`` loads directly.
 Loading is the reference's strict=False, shape-filtered merge
 (mde_tpu/train/torch_import.py:1146-1194) with the DataParallel ``module.``
 prefix stripped (:44-46), and it reports what it did.
+
+A training checkpoint is the reference's payload dict (src/main.py:206-224):
+``TRAINING_KEYS``, with the model under ``model_state_dict``, so
+``load_checkpoint`` and the server read it like a bare state_dict.
 """
 
 from __future__ import annotations
@@ -20,13 +24,39 @@ def checkpoint_path(results_dir: str, model_name: str) -> str:
     return os.path.join(results_dir, f"best_model_{model_name}.pth")
 
 
+TRAINING_KEYS = ("epoch", "model_state_dict", "optimizer_state_dict", "best_val_loss",
+                 "best_epoch", "early_stopping_counter", "train_loss", "val_loss", "config")
+
+
+def _atomic_save(obj, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu_state_dict(model: nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
 def save_checkpoint(path: str, model: nn.Module) -> None:
     """Write ``model``'s state_dict (on the CPU) atomically."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    tmp = path + ".tmp"
-    torch.save(sd, tmp)
-    os.replace(tmp, path)
+    _atomic_save(_cpu_state_dict(model), path)
+
+
+def save_training_checkpoint(path: str, model: nn.Module, optimizer, **fields) -> None:
+    """Write the reference's training payload atomically: the model's and the
+    optimizer's state plus ``fields`` (the other ``TRAINING_KEYS``)."""
+    missing = set(TRAINING_KEYS) - {"model_state_dict", "optimizer_state_dict"} - set(fields)
+    if missing:
+        raise ValueError(f"training checkpoint lacks {sorted(missing)}")
+    _atomic_save({"model_state_dict": _cpu_state_dict(model),
+                  "optimizer_state_dict": optimizer.state_dict(), **fields}, path)
+
+
+def load_training_checkpoint(path: str) -> dict:
+    """The payload ``save_training_checkpoint`` wrote, tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def _unwrap(obj) -> dict:

@@ -7,8 +7,12 @@ against the plain versions on the card by chip_smoke.py.
 
 Tolerance: atol 1e-5 (rtol 1e-5 for gradients) in float32. Both sides compute
 the same float32 math in a different summation order; attention outputs and
-normalised pixels are O(1), so rounding stays near 1e-6.
+normalised pixels are O(1), so rounding stays near 1e-6. The bf16 plain
+version is held to the float32 one within bf16's unit roundoff, 2^-8. K2's plain
+version is held against JAX in tests/test_torch_losses.py.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -160,3 +164,84 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     with open(tmp_path / "preprocess.cu", "a") as f:
         f.write("// edited\n")
     assert K.library_path() != before
+
+
+def test_training_wrappers_take_plain_version_on_cpu_only():
+    """K2 forward and backward and K1's bf16 form: on a CPU tensor the plain
+    version runs and nothing is launched; on a meta tensor they raise."""
+    counters = (K.si_loss_sums.launches, K.si_loss_sums.backward_launches,
+                K.window_attention.launches, K.window_attention.bf16_launches)
+    pred = (torch.rand(2, 5, 7) + 0.1).requires_grad_()
+    target = torch.rand(2, 5, 7) + 0.1
+    s1, s2 = K.si_loss_sums(pred, target)
+    p1, p2 = K.si_loss_sums_plain(pred, target)
+    assert torch.equal(s1, p1) and torch.equal(s2, p2)
+    (s1.sum() + s2.sum()).backward()
+    want, _ = K.si_loss_sums_backward_plain(pred.detach(), target, torch.ones(2), torch.ones(2),
+                                            1e-6, False)
+    assert torch.equal(pred.grad, want)
+    x = torch.randn(1, 2, 16, 8).to(torch.bfloat16)
+    mask = torch.ones(2, 16)
+    got = K.window_attention(x, x, x, 2, mask)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, K.window_attention_plain(x, x, x, 2, mask))
+    assert (K.si_loss_sums.launches, K.si_loss_sums.backward_launches,
+            K.window_attention.launches, K.window_attention.bf16_launches) == counters
+    meta = torch.empty(2, 5, 7, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.si_loss_sums(meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.window_attention(*(torch.empty(1, 2, 16, 8, dtype=torch.bfloat16, device="meta"),) * 3,
+                           2, mask.to("meta"))
+
+
+def test_window_attention_bf16_plain_is_float32_rounded_once():
+    """The plain version is the reference of both kernel forms: bf16 inputs
+    give the float32 result of the same (bf16-exact) values, rounded once to
+    bf16, i.e. within bf16's unit roundoff (2^-8 relative) of it."""
+    rng = np.random.default_rng(5)
+    b, h, w, c, heads, ws = 1, 24, 40, 32, 8, 16
+    grids = [np.pad(x, ((0, 0), (0, 8), (0, 8), (0, 0))) for x in _qkv(rng, (b, h, w, c))]
+    wins = [_window_partition(torch.from_numpy(x), ws)[0].contiguous().to(torch.bfloat16)
+            for x in grids]
+    mask = torch.from_numpy(_window_key_validity(h, w, h + 8, w + 8, ws))
+    got = K.window_attention_plain(*wins, heads, mask)
+    want = K.window_attention_plain(*(x.float() for x in wins), heads, mask)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+    assert ((got.float() - want).abs() <= want.abs() * 2.0**-8).all()
+    with torch.autocast("cpu", dtype=torch.bfloat16):  # autocast does not lower the math
+        assert torch.equal(K.window_attention_plain(*wins, heads, mask), got)
+
+
+def test_library_name_follows_the_si_loss_source(tmp_path, monkeypatch):
+    for src in K.CSRC_DIR.glob("*.cu"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "si_loss.cu").exists()
+    monkeypatch.setattr(K, "CSRC_DIR", tmp_path)
+    before = K.library_path()
+    with open(tmp_path / "si_loss.cu", "a") as f:
+        f.write("// edited\n")
+    assert K.library_path() != before
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """With a stand-in nvcc that logs its arguments: one ``-c`` per source,
+    all started before the link, one ``-shared`` link of the objects, and no
+    object left behind."""
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n"
+                    f'echo "$@" >> "{log}"\n'
+                    'while [ "$#" -gt 1 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{fake.parent}:{os.environ['PATH']}")
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    so = K.build()
+    assert so.exists() and so.parent == tmp_path / "build"
+    calls = log.read_text().splitlines()
+    sources = sorted(p.name for p in K.CSRC_DIR.glob("*.cu"))
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == sources
+    assert "-shared" in calls[-1] and calls[-1].count(".o") == len(sources)
+    assert sorted(p.name for p in so.parent.iterdir()) == [so.name]
