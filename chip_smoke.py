@@ -2,26 +2,33 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Two models, each at full width with random weights from a seed: the flagship
+(MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
+(DINOv2 ViT-S/14 trunk + DPT head at 448x588, selected by the two ``--set``
+overrides in ``DA2_SETS``). Every LayerScale gamma is drawn in [0.2, 0.8]:
+fresh ones are 1e-5 and would hide what the attention computes.
+
+Phases, each printing JSON lines:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build    nvcc builds the port's kernels from mde_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serving and training paths' shapes: errors and CUDA-event median
-              times (K1 float32 and bf16, K3, K2 forward and backward);
-  4. serve    the flagship (MiDaS-small + DINOv2 ViT-S/14 at full width, random
-              weights from a seed, saved and loaded as a checkpoint) behind the
-              port's HTTP server, answering concurrent .npy requests; replies are
-              checked for shape and finiteness, against the plain-version predict
-              step on the card and against the CPU; the kernels' launch counters
-              must have risen while the requests were served;
-  5. train    the flagship at full width, batch 4: (a) one float32 train step
-              through the kernels against the same step through the plain
-              versions (loss and gradients); (b) two bf16 autocast steps; (c) the
-              training CLI for 2 epochs on generated data, with its checkpoint
-              and test predictions checked and every training kernel launched;
-              (d) the train step's CUDA-event times, peak memory and the
-              profiler's split of its device time.
-Then a line with every kernel's numbers, and last
+              times (K1 float32 and bf16, K3, K2 forward and backward, K4
+              float32 and bf16 at six shapes, and K4's gradient);
+  4. serve    for each model: a checkpoint behind the port's HTTP server,
+              answering concurrent .npy requests; replies are checked for shape
+              and finiteness, against the plain-version predict step on the card
+              and against the CPU; the path's kernels must have been launched
+              while the requests were served; the predict step's host time by
+              bucket, and at buckets 1 and 8 against the plain versions;
+  5. train    for each model at batch 4: (a) one float32 train step through the
+              kernels against the same step through the plain versions (loss
+              and gradients); (b) two bf16 autocast steps; (d) the train step's
+              CUDA-event times, peak memory and the profiler's split of its
+              device time; (c) the training CLI for 2 epochs on generated data,
+              with its checkpoint and test predictions checked and every
+              kernel of the path launched.
+Then a line with every kernel's numbers and its launches by path, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -52,9 +59,19 @@ K1_REPLACES = "mde_tpu/ops/pallas_kernels.py:202"
 K2_REPLACES = "mde_tpu/ops/pallas_kernels.py:111"
 K2_BWD_REPLACES = "mde_tpu/ops/pallas_kernels.py:130"
 K3_REPLACES = "mde_tpu/ops/pallas_kernels.py:240"
+K4_SOURCE = "mde_tpu_torch/csrc/flash_attention.cu"
+K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
+# (label, (B, N, H, D)): DA-V2-S serving and training at 448x588 (32x42 + 1
+# tokens), DA-V2-L, the flagship's DINOv2 branch at buckets 1 and 8 (16x20 + 1
+# tokens), and a ragged tile.
+K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
+            ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
+            ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)))
+TOL_K4_GRAD = 1e-5  # rel-L2 of dq/dk/dv, kernel forward vs plain forward, float32
+DA2_SETS = ("model.model_type=DepthAnythingV2_vits", "framework.input_size=[448,588]")
 TOL_KERNEL = 1e-5  # kernel vs plain, float32, same inputs
 TOL_K2 = 1e-5  # K2 sums relative; backward max-abs over the plain gradient's max-abs
-TOL_K1_BF16 = 1e-2  # max-abs, about one bf16 ulp at |out| ~ 2
+TOL_K1_BF16 = 1e-2  # max-abs, about one bf16 ulp at |out| ~ 2 (K1 and K4)
 # Kernel path vs plain path, one float32 train step: the loss, and the
 # gradients' rel-L2 globally and per top-level module, the noise band of the
 # flagship's gradient (tests/test_train_parity.py:444-457).
@@ -165,27 +182,73 @@ def phase_kernels() -> dict:
     check(err <= TOL_K1_BF16, f"window_attention bf16: max-abs {err} > {TOL_K1_BF16}")
     results["window_attention_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
-    # K2 at the train step's shape (n = 126 * 2048 a sample), and at ragged
-    # shapes whose last chunk is masked by index (one chunk, several chunks),
-    # with the target's gradient too. Times at the train step's shape only.
-    for label, shape in (("flagship_train", (4, 448, 576)), ("ragged", (3, 1001)),
-                         ("ragged_chunks", (2, 5000))):
+    # K2 at the flagship train step's shape (n = 126 * 2048 a sample), at
+    # DA-V2's (n = 128.6 * 2048: a ragged last chunk) and at small ragged
+    # shapes (one chunk, several chunks), with the target's gradient too
+    # where untimed. Times at the flagship train step's shape only.
+    for label, shape in (("flagship_train", (4, 448, 576)), ("da2_train", (4, 448, 588)),
+                         ("ragged", (3, 1001)), ("ragged_chunks", (2, 5000))):
         results.update(_check_k2(K, label, shape, g, timed=label == "flagship_train"))
 
+    # K3 to the flagship's and to DA-V2's input size; times at the flagship's.
     rgb = torch.randint(0, 256, (4, 426, 560, 3), dtype=torch.uint8, generator=g).to(dev)
-    got = K.preprocess_u8(rgb, (448, 576))
-    want = K.preprocess_u8_plain(rgb, (448, 576))
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    ms = cuda_ms(lambda: K.preprocess_u8(rgb, (448, 576)))
-    plain_ms = cuda_ms(lambda: K.preprocess_u8_plain(rgb, (448, 576)))
-    emit({"phase": "kernels", "kernel": "preprocess_u8", "case": "flagship",
-          "shape": [4, 426, 560, 3], "out": list(got.shape), "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms})
-    check(tuple(got.shape) == (4, 3, 448, 576), f"preprocess_u8: shape {tuple(got.shape)}")
-    check(err <= TOL_KERNEL, f"preprocess_u8: max-abs {err} > {TOL_KERNEL}")
-    results["preprocess_u8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    for label, size in (("flagship", (448, 576)), ("da2", (448, 588))):
+        got = K.preprocess_u8(rgb, size)
+        want = K.preprocess_u8_plain(rgb, size)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ms = cuda_ms(lambda: K.preprocess_u8(rgb, size))
+        plain_ms = cuda_ms(lambda: K.preprocess_u8_plain(rgb, size))
+        emit({"phase": "kernels", "kernel": "preprocess_u8", "case": label,
+              "shape": [4, 426, 560, 3], "out": list(got.shape), "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms})
+        check(tuple(got.shape) == (4, 3, *size), f"preprocess_u8 {label}: shape {tuple(got.shape)}")
+        check(err <= TOL_KERNEL, f"preprocess_u8 {label}: max-abs {err} > {TOL_KERNEL}")
+        results.setdefault("preprocess_u8", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
+    results.update(_check_k4(K, g))
     return results
+
+
+def _check_k4(K, g) -> dict:
+    """K4 at every case in both element types, on the (B, N, 3, H, D) views of
+    a fused qkv tensor as the ViT hands them over, against its plain version
+    fed the same inputs; then its gradient. The kernel rows carry the largest
+    error over the cases and the times at DA-V2-S's training shape."""
+    out = {}
+    for dtype, name, tol in ((torch.float32, "flash_attention", TOL_KERNEL),
+                             (torch.bfloat16, "flash_attention_bf16", TOL_K1_BF16)):
+        cases = {}
+        for label, (b, n, h, d) in K4_CASES:
+            q, k, v = torch.randn((b, n, 3, h, d), generator=g).to("cuda", dtype).unbind(2)
+            got = K.flash_attention(q, k, v)
+            want = K.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"{name} {label}: {got.dtype} output, or non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            ms = cuda_ms(lambda: K.flash_attention(q, k, v))
+            plain_ms = cuda_ms(lambda: K.flash_attention_plain(q, k, v))
+            cases[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            emit({"phase": "kernels", "kernel": name, "case": label, "shape": [b, n, h, d],
+                  **cases[label]})
+            check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
+        out[name] = dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                         ms=cases["da2s_train"]["ms"], plain_ms=cases["da2s_train"]["plain_ms"])
+
+    # The gradient: autograd through the kernel's forward against autograd
+    # through the plain one, float32, at the flagship's shape and a ragged one.
+    for label, shape in (("flagship_b1", (1, 321, 6, 64)), ("ragged", (2, 130, 6, 64))):
+        q, k, v, cot = (torch.randn(shape, generator=g).cuda() for _ in range(4))
+        grads = []
+        for fn in (K.flash_attention, K.flash_attention_plain):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, cot))
+        rel = max(_rel_l2(a, b) for a, b in zip(*grads))
+        emit({"phase": "kernels", "kernel": "flash_attention_grad", "case": label,
+              "shape": list(shape), "max_rel_l2": rel})
+        check(rel <= TOL_K4_GRAD, f"flash_attention gradient {label}: rel-L2 {rel}")
+    return out
 
 
 def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
@@ -239,24 +302,90 @@ def _post(url: str, body: bytes):
         return resp.status, resp.read(), dict(resp.headers)
 
 
-def phase_serve() -> dict:
+def _counters():
+    from mde_tpu_torch.ops import kernels as K
+
+    return {"window_attention": (K.window_attention, "launches"),
+            "window_attention_bf16": (K.window_attention, "bf16_launches"),
+            "preprocess_u8": (K.preprocess_u8, "launches"),
+            "si_loss_sums": (K.si_loss_sums, "launches"),
+            "si_loss_sums_backward": (K.si_loss_sums, "backward_launches"),
+            "flash_attention": (K.flash_attention, "launches"),
+            "flash_attention_bf16": (K.flash_attention, "bf16_launches")}
+
+
+def reset_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+# The kernels each path must launch (a path may launch others: none here).
+PATH_KERNELS = {
+    "flagship_serve": ("window_attention", "preprocess_u8", "flash_attention"),
+    "flagship_train": ("window_attention", "window_attention_bf16", "preprocess_u8",
+                       "si_loss_sums", "si_loss_sums_backward", "flash_attention",
+                       "flash_attention_bf16"),
+    "da2_serve": ("preprocess_u8", "flash_attention"),
+    "da2_train": ("preprocess_u8", "si_loss_sums", "si_loss_sums_backward", "flash_attention",
+                  "flash_attention_bf16"),
+}
+
+
+def model_cfg(name: str, *sets: str):
+    """The config a user gets from the CLI with the model's ``--set``s."""
+    from mde_tpu_torch.tools.common import parse_config
+
+    extra = DA2_SETS if name == "da2" else ()
+    cfg, _ = parse_config("chip_smoke", argv=[a for x in extra + sets for a in ("--set", x)])
+    return cfg
+
+
+def make_model(name: str, cfg, bias: float):
+    """The model from SEED on the CPU, with every LayerScale gamma in [0.2, 0.8]
+    and the final depth conv's bias raised by ``bias`` (a random depth tail
+    sits at its ReLU: most of the map would compare 0 to 0)."""
+    from mde_tpu_torch.models.factory import build_model
+    from mde_tpu_torch.nn.vit import LayerScale
+
+    g = torch.Generator().manual_seed(SEED)
+    model = build_model(cfg.model, "cpu", g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.copy_(torch.rand(m.gamma.shape, generator=g) * 0.6 + 0.2)
+        final = (model.depth_head.scratch.output_conv2[2] if name == "da2"
+                 else model.depth_head[1])
+        final.bias.add_(bias)
+    return model
+
+
+def _host_ms(step, batch: np.ndarray, reps: int = 5) -> float:
+    """Median host time of copy in, step, copy out (the serving path's work)."""
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        step(torch.from_numpy(batch).cuda()).cpu()
+        times.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serve(name: str) -> dict:
     from http.server import ThreadingHTTPServer
 
-    from mde_tpu_torch.core import config
-    from mde_tpu_torch.models.factory import build_model
-    from mde_tpu_torch.ops import kernels as K
     from mde_tpu_torch.tools.common import bootstrap_model
     from mde_tpu_torch.tools.serve import build_service, make_handler
     from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
     from mde_tpu_torch.train.trainer import make_predict_step
 
+    path = f"{name}_serve"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cfg = config.defaults()  # the flagship: 448x576 input, DINOv2 at 224x280
-        cfg.paths.results_dir = tmp
+        cfg = model_cfg(name, f"paths.results_dir={tmp}")
         ckpt = checkpoint_path(tmp, cfg.experiment.model_name)
-        model = build_model(cfg.model, "cpu", torch.Generator().manual_seed(SEED))
-        save_checkpoint(ckpt, model)
-        del model
+        save_checkpoint(ckpt, make_model(name, cfg, bias=0.5 if name == "da2" else 0.0))
 
         t0 = time.perf_counter()
         service = build_service(cfg, "cuda", max_batch=8, window_ms=5.0, warmup=True)
@@ -286,8 +415,7 @@ def phase_serve() -> dict:
                 except Exception as e:  # reported below; a thread must not die silently
                     errors.append(f"client {c}: {type(e).__name__}: {e}")
 
-            K.window_attention.launches = 0
-            K.preprocess_u8.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
             for t in threads:
@@ -295,8 +423,7 @@ def phase_serve() -> dict:
             for t in threads:
                 t.join(timeout=600)
             serve_s = time.perf_counter() - t0
-            launches = {"window_attention": K.window_attention.launches,
-                        "preprocess_u8": K.preprocess_u8.launches}
+            launches = read_counts()
             check(not errors, f"client errors: {errors}")
             check(all(not t.is_alive() for t in threads), "a client thread did not finish")
 
@@ -310,8 +437,8 @@ def phase_serve() -> dict:
                 depths.append(d)
                 batch_sizes.append(int(headers["X-Batch-Size"]))
             check(max(batch_sizes) > 1, f"no request was coalesced: {batch_sizes}")
-            for name, n in launches.items():
-                check(n > 0, f"{name} was not launched while the requests were served")
+            for kernel in PATH_KERNELS[path]:
+                check(launches[kernel] > 0, f"{kernel} was not launched while {path} served")
 
             # The same weights, run through the plain versions on the card and on the CPU.
             ref_model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
@@ -328,28 +455,33 @@ def phase_serve() -> dict:
             cpu_err = float(np.abs(cpu - depths[0]).max())
             check(np.allclose(depths[0], cpu, rtol=2e-3, atol=2e-4),
                   f"served reply vs CPU predict step: max-abs {cpu_err}")
+            del cpu_model
 
-            bucket_ms = {}
-            for b in service.batcher.buckets:
-                batch = np.zeros((b, h, w, 3), np.uint8)
-                times = []
-                for _ in range(5):
-                    t1 = time.perf_counter()
-                    service._predict_many(batch)  # ends in a device-to-host copy
-                    times.append((time.perf_counter() - t1) * 1e3)
-                bucket_ms[str(b)] = statistics.median(times)
-            out = {"phase": "serve", "requests": len(replies), "clients": N_CLIENTS,
-                   "start_s": start_s, "serve_s": serve_s, "batch_sizes": batch_sizes,
-                   "stats": dict(service.batcher.stats), "launches": launches,
-                   "served_vs_plain_max_abs": served_err, "served_vs_cpu_max_abs": cpu_err,
-                   "depth_mean": float(np.mean(depths)), "depth_spread": spread,
-                   "predict_ms_by_bucket": bucket_ms}
+            bucket_ms = {str(b): _host_ms(service._step, np.zeros((b, h, w, 3), np.uint8))
+                         for b in service.batcher.buckets}
+            # Kernels against plain versions at buckets 1 and 8, in turns
+            # plain, kernels, kernels, plain.
+            ab = {}
+            for b in (1, 8):
+                batch = images[:b]
+                steps = {"plain": plain_step, "kernels": service._step}
+                ab[str(b)] = {k: [] for k in steps}
+                for k in ("plain", "kernels", "kernels", "plain"):
+                    ab[str(b)][k].append(_host_ms(steps[k], batch))
+            out = {"phase": "serve", "model": name, "requests": len(replies),
+                   "clients": N_CLIENTS, "start_s": start_s, "serve_s": serve_s,
+                   "batch_sizes": batch_sizes, "stats": dict(service.batcher.stats),
+                   "launches": launches, "served_vs_plain_max_abs": served_err,
+                   "served_vs_cpu_max_abs": cpu_err, "depth_mean": float(np.mean(depths)),
+                   "depth_spread": spread, "predict_ms_by_bucket": bucket_ms,
+                   "predict_ms_kernels_vs_plain": ab}
             emit(out)
             return launches
         finally:
             server.shutdown()
             server.server_close()
             service.close()
+
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
     return ((a - b).norm() / max(b.norm().item(), floor)).item()
@@ -393,7 +525,8 @@ def _profile_step(step, step_ms: float) -> dict:
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     ours = {o: [0.0, 0] for o in ("window_attention_kernel", "si_partial_kernel",
-                                  "si_finish_kernel", "si_backward_kernel")}
+                                  "si_finish_kernel", "si_backward_kernel",
+                                  "flash_attention_kernel")}
     for name, ms, n in rows:
         for o, acc in ours.items():
             if o in name:
@@ -406,12 +539,9 @@ def _profile_step(step, step_ms: float) -> dict:
             "top": [[name[:90], ms, n] for name, ms, n in rows[:12]]}
 
 
-def phase_train() -> dict:
-    from mde_tpu_torch.core import config
+def phase_train(name: str) -> dict:
     from mde_tpu_torch.data import synthetic
     from mde_tpu_torch.data.transforms import preprocess_train
-    from mde_tpu_torch.models.factory import build_model
-    from mde_tpu_torch.ops import kernels as K
     from mde_tpu_torch.tools import main as train_cli
     from mde_tpu_torch.tools.common import bootstrap_model, live_missing_keys
     from mde_tpu_torch.train.checkpoint import checkpoint_path, load_training_checkpoint
@@ -419,79 +549,79 @@ def phase_train() -> dict:
     from mde_tpu_torch.train.trainer import (forward_backward, make_optimizer, make_train_step,
                                              step_generator)
 
-    cfg = config.defaults()  # the flagship, bf16 compute
-    cfg32 = config.defaults()
-    cfg32.framework.compute_dtype = "float32"
-    model = build_model(cfg.model, "cpu", torch.Generator().manual_seed(SEED))
-    with torch.no_grad():
-        # Start the depth head comfortably positive, as tests/test_train_parity.py
-        # does: at random init most pre-ReLU depths sit at the ReLU cliff, where
-        # the loss gradient is ~1/(pred + 1e-6) and the comparison says nothing.
-        model.depth_head[1].bias.add_(2.0)
-    model = model.cuda()
+    path = f"{name}_train"
+    cfg = model_cfg(name)  # bf16 compute, the default
+    cfg32 = model_cfg(name, "framework.compute_dtype=float32")
+    input_size = tuple(int(s_) for s_ in cfg.framework.input_size)
+    # Start the depth head comfortably positive, as tests/test_train_parity.py
+    # does: at random init most pre-ReLU depths sit at the ReLU cliff, where
+    # the loss gradient is ~1/(pred + 1e-6) and the comparison says nothing.
+    model = make_model(name, cfg, bias=0.5 if name == "da2" else 2.0).cuda()
     init_state = copy.deepcopy(model.state_dict())
     rng = np.random.default_rng(SEED)
     samples = [synthetic.make_sample(rng, *TRAIN_SHAPE[1:]) for _ in range(TRAIN_SHAPE[0])]
     rgb_u8 = torch.from_numpy(np.stack([s_[0] for s_ in samples])).cuda()
     depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
-    out = {"phase": "train", "batch": TRAIN_SHAPE[0], "input_size": list(cfg.framework.input_size)}
+    out = {"phase": "train", "model": name, "batch": TRAIN_SHAPE[0],
+           "input_size": list(input_size)}
 
     # (a) one float32 step, kernels vs plain, on the same jittered inputs
-    rgb, depth = preprocess_train(rgb_u8, depth_raw, (448, 576), generator=step_generator(SEED, 0, 0))
+    rgb, depth = preprocess_train(rgb_u8, depth_raw, input_size,
+                                  generator=step_generator(SEED, 0, 0))
     model_plain = copy.deepcopy(model)
-    for counter in ("launches", "bf16_launches"):
-        setattr(K.window_attention, counter, 0)
-    K.si_loss_sums.launches = K.si_loss_sums.backward_launches = 0
+    reset_counts()
     loss_k, _ = forward_backward(model, cfg32, rgb, depth)
-    launches_a = {"window_attention": K.window_attention.launches,
-                  "si_loss_sums": K.si_loss_sums.launches,
-                  "si_loss_sums_backward": K.si_loss_sums.backward_launches}
+    launches_a = read_counts()
     loss_p, _ = forward_backward(model_plain, cfg32, rgb, depth, plain=True)
-    check(K.si_loss_sums.launches == launches_a["si_loss_sums"],
-          "the plain path launched a kernel")
+    check(read_counts() == launches_a, "the plain path launched a kernel")
     loss_k, loss_p = loss_k.item(), loss_p.item()
     gaps = _grad_gaps(model, model_plain)
     out["a_fp32_kernels_vs_plain"] = {"loss_kernels": loss_k, "loss_plain": loss_p,
                                       "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
                                       "grad_rel_l2": gaps, "launches": launches_a}
-    emit({"phase": "train", "check": "a", **out["a_fp32_kernels_vs_plain"]})
+    emit({"phase": "train", "model": name, "check": "a", **out["a_fp32_kernels_vs_plain"]})
     check(all(np.isfinite([loss_k, loss_p])), f"non-finite loss {loss_k}, {loss_p}")
     check(abs(loss_k - loss_p) <= TOL_TRAIN_LOSS * abs(loss_p),
           f"train loss kernels {loss_k} vs plain {loss_p}")
     check(gaps["global"] < TOL_GRAD_GLOBAL, f"global gradient rel-L2 {gaps['global']}")
     bad = {k: v for k, v in gaps.items() if k != "global" and v >= TOL_GRAD_SUBTREE}
     check(not bad, f"subtree gradient rel-L2 above {TOL_GRAD_SUBTREE}: {bad}")
-    check(all(n > 0 for n in launches_a.values()), f"a kernel was not launched: {launches_a}")
+    want_a = [k for k in PATH_KERNELS[path] if not k.endswith("_bf16") and k != "preprocess_u8"]
+    check(all(launches_a[k] > 0 for k in want_a), f"a kernel was not launched: {launches_a}")
     make_optimizer(model, cfg32).step()
     del model_plain
 
     # (b) two bf16 autocast steps from the same weights
     model.load_state_dict(init_state)
-    K.window_attention.bf16_launches = 0
+    reset_counts()
     step16 = make_train_step(model, cfg, make_optimizer(model, cfg))
     losses16 = [step16(rgb_u8, depth_raw, step_generator(SEED, 0, i))["loss"].item()
                 for i in range(2)]
+    launches_b = read_counts()
     out["b_bf16"] = {"losses": losses16, "fp32_step0_loss": loss_k,
                      "step0_rel": abs(losses16[0] - loss_k) / abs(loss_k),
-                     "bf16_launches": K.window_attention.bf16_launches}
-    emit({"phase": "train", "check": "b", **out["b_bf16"]})
+                     "launches": launches_b}
+    emit({"phase": "train", "model": name, "check": "b", **out["b_bf16"]})
     check(all(np.isfinite(losses16)), f"non-finite bf16 losses {losses16}")
-    check(K.window_attention.bf16_launches > 0, "the bf16 window attention was not launched")
+    for k in PATH_KERNELS[path]:
+        if k.endswith("_bf16"):
+            check(launches_b[k] > 0, f"{k} was not launched by the bf16 steps")
     check(abs(losses16[0] - loss_k) <= TOL_BF16_LOSS * abs(loss_k),
           f"bf16 step-0 loss {losses16[0]} vs float32 {loss_k}")
 
     # (d) the train step's times and peak memory, each dtype in turn
     timing = {}
-    for name, c in (("fp32", cfg32), ("bf16", cfg)):
+    for dt, c in (("fp32", cfg32), ("bf16", cfg)):
         model.load_state_dict(init_state)
         step = make_train_step(model, c, make_optimizer(model, c))
         gen = step_generator(SEED, 1, 0)
         torch.cuda.reset_peak_memory_stats()
         ms = cuda_ms(lambda: step(rgb_u8, depth_raw, gen), reps=8, warmup=2)
-        timing[name] = {"step_ms": ms, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-                        "profile": _profile_step(lambda: step(rgb_u8, depth_raw, gen), ms)}
+        timing[dt] = {"step_ms": ms, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                      "profile": _profile_step(lambda: step(rgb_u8, depth_raw, gen), ms)}
     out["d_timing"] = timing
-    emit({"phase": "train", "check": "d", "train_step_ms": {k: v["step_ms"] for k, v in timing.items()},
+    emit({"phase": "train", "model": name, "check": "d",
+          "train_step_ms": {k: v["step_ms"] for k, v in timing.items()},
           "peak_mib": {k: v["peak_mib"] for k, v in timing.items()},
           "profile": {k: v["profile"] for k, v in timing.items()}})
     del model, step, step16
@@ -501,43 +631,37 @@ def phase_train() -> dict:
         data = os.path.join(tmp, "data")
         synthetic.generate(data, n_train=16, n_test=4, size=TRAIN_SHAPE[1:], seed=SEED)
         results, preds = os.path.join(tmp, "results"), os.path.join(tmp, "predictions")
-        argv = ["--device", "cuda", "--data-dir", data, "--set", "training.n_epoch=2",
-                "--set", f"paths.results_dir={results}", "--set", f"paths.predictions_dir={preds}",
-                "--set", "experiment.wandb_disable=true"]
-        counters = ((K.window_attention, "launches"), (K.window_attention, "bf16_launches"),
-                    (K.si_loss_sums, "launches"), (K.si_loss_sums, "backward_launches"),
-                    (K.preprocess_u8, "launches"))
-        for fn, attr in counters:
-            setattr(fn, attr, 0)
+        sets = ("training.n_epoch=2", f"paths.results_dir={results}",
+                f"paths.predictions_dir={preds}", "experiment.wandb_disable=true")
+        sets = (DA2_SETS if name == "da2" else ()) + sets
+        argv = ["--device", "cuda", "--data-dir", data] + [a for x in sets for a in ("--set", x)]
+        reset_counts()
         t0 = time.perf_counter()
         history = train_cli.main(argv)
         cli_s = time.perf_counter() - t0
-        launches = {"window_attention": K.window_attention.launches,
-                    "window_attention_bf16": K.window_attention.bf16_launches,
-                    "si_loss_sums": K.si_loss_sums.launches,
-                    "si_loss_sums_backward": K.si_loss_sums.backward_launches,
-                    "preprocess_u8": K.preprocess_u8.launches}
+        launches = read_counts()
         ckpt = checkpoint_path(results, cfg.experiment.model_name)
         check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
         payload = load_training_checkpoint(ckpt)
         check(set(TRAINING_KEYS) <= set(payload), f"checkpoint keys {sorted(payload)}")
-        _, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
-        missing = live_missing_keys(report)
+        reloaded, report = bootstrap_model(model_cfg(name), "cuda", checkpoint=ckpt)
+        missing = live_missing_keys(reloaded, report)
         check(not report["shape_mismatch"] and not missing,
               f"checkpoint reload: {report['shape_mismatch'][:5]} {missing[:5]}")
+        del reloaded
         files = sorted(os.listdir(preds))
         arrays = [np.load(os.path.join(preds, f)) for f in files]
         out["c_cli"] = {"seconds": cli_s, "history": history, "launches": launches,
                         "predictions": len(files), "checkpoint_epoch": payload["epoch"]}
-        emit({"phase": "train", "check": "c", **out["c_cli"]})
+        emit({"phase": "train", "model": name, "check": "c", **out["c_cli"]})
         check(len(history["train_loss"]) == 2, f"epochs run: {history}")
         check(all(np.isfinite(history["train_loss"] + history["val_loss"])),
               f"non-finite losses {history}")
         check(len(arrays) == 4 and all(a.shape == (426, 560) and np.isfinite(a).all()
                                        for a in arrays),
               f"predictions {[(f, a.shape) for f, a in zip(files, arrays)]}")
-        for name, n in launches.items():
-            check(n > 0, f"{name} was not launched during the training run")
+        for kernel in PATH_KERNELS[path]:
+            check(launches[kernel] > 0, f"{kernel} was not launched during {path}")
     return launches
 
 
@@ -549,18 +673,22 @@ def main() -> int:
     kind, _ = phase_device()
     phase_build()
     kernels = phase_kernels()
-    served = phase_serve()
-    trained = phase_train()
+    by_path = {}
+    for name in ("flagship", "da2"):
+        by_path[f"{name}_serve"] = phase_serve(name)
+        by_path[f"{name}_train"] = phase_train(name)
     rows = []
     for name, source, replaces in (
             ("window_attention", K1_SOURCE, K1_REPLACES),
             ("window_attention_bf16", K1_SOURCE, K1_REPLACES),
             ("preprocess_u8", K3_SOURCE, K3_REPLACES),
             ("si_loss_sums", K2_SOURCE, K2_REPLACES),
-            ("si_loss_sums_backward", K2_SOURCE, K2_BWD_REPLACES)):
-        by_path = {"serve": served.get(name, 0), "train": trained[name]}
+            ("si_loss_sums_backward", K2_SOURCE, K2_BWD_REPLACES),
+            ("flash_attention", K4_SOURCE, K4_REPLACES),
+            ("flash_attention_bf16", K4_SOURCE, K4_REPLACES)):
+        launches = {p: counts[name] for p, counts in by_path.items()}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                     "launches": sum(launches.values()), "launches_by_path": launches,
                      **kernels[name]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

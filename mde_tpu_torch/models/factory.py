@@ -1,7 +1,8 @@
-"""Model factory (port of mde_tpu/models/factory.py, first slice).
+"""Model factory (port of mde_tpu/models/factory.py).
 
-Only the flagship branch is ported: ``model_type: MiDaS_small`` with a
-``dinov2_type`` builds MidasNetSemantics. Every other branch raises
+Two branches are ported: ``model_type: MiDaS_small`` with a ``dinov2_type``
+builds MidasNetSemantics (the flagship), and ``DepthAnythingV2_{vits,vitb,vitl}``
+builds DepthAnythingV2 of that size. Every other branch raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.blocks import init_weights_
+from .depth_anything import DepthAnythingV2
 from .midas_semantics import MidasNetSemantics
 
 
@@ -23,14 +25,19 @@ def build_model(model_cfg, device, generator: torch.Generator):
             raise NotImplementedError(
                 f"{flag} is not ported to mde_tpu_torch yet "
                 "(ROADMAP.md, Queue 1: the rest of the model zoo)")
-    if model_type != "MiDaS_small" or model_cfg.get("dinov2_type") is None:
+    if model_type.startswith("DepthAnythingV2"):
+        size = model_type.split("_")[-1] if "_" in model_type else "vits"
+        cls, kwargs = DepthAnythingV2, {"size": size}
+    elif model_type == "MiDaS_small" and model_cfg.get("dinov2_type") is not None:
+        cls, kwargs = MidasNetSemantics, {"features": 64, "backbone": "efficientnet_lite3",
+                                          "dinov2_type": model_cfg.dinov2_type}
+    else:
         raise NotImplementedError(
             f"model_type {model_type!r} with dinov2_type {model_cfg.get('dinov2_type')!r} "
             "is not ported to mde_tpu_torch yet (ROADMAP.md, Queue 1: the rest of the "
             "model zoo)")
     with torch.device("meta"):
-        model = MidasNetSemantics(features=64, backbone="efficientnet_lite3",
-                                  dinov2_type=model_cfg.dinov2_type)
+        model = cls(**kwargs)
     model = model.to_empty(device="cpu")
     init_weights_(model, generator)
     return model.to(device)

@@ -23,7 +23,6 @@ import torch.nn.functional as F
 from ..nn.blocks import (BatchNorm, Conv, ConvTranspose, FeatureFusionBlockCustom, LayerNorm,
                          ScratchConvs)
 from ..nn.vit import VIT_CONFIGS, ViT
-from ..ops.kernels import window_attention
 from ..ops.resize import resize_bilinear
 from ..ops.window_attention import windowed_cross_attention
 from .midas_small import MidasNetSmall
@@ -82,14 +81,14 @@ class CrossAttention(nn.Module):
         self.spatial_upsample = nn.Sequential(
             *(m for _ in range(3) for m in _conv_bn_relu(ConvTranspose(dim, dim, 4, 2, 1), dim)))
 
-    def forward(self, x, context, attention=window_attention):
+    def forward(self, x, context, plain: bool = False):
         h, w = x.shape[-2:]
         x_r = self.spatial_reduction(x).permute(0, 2, 3, 1)  # (B, h/8, w/8, C)
         ctx_r = self.spatial_reduction(context).permute(0, 2, 3, 1)
         q = self.q(self.norm_q(x_r))
         k = self.k(self.norm_k(ctx_r))
         v = self.v(self.norm_v(ctx_r))
-        out = windowed_cross_attention(q, k, v, self.num_heads, self.window_size, attention)
+        out = windowed_cross_attention(q, k, v, self.num_heads, self.window_size, plain)
         out = self.proj(self.norm_out(out)).permute(0, 3, 1, 2)
         # The transposed convs restore exactly 8x; crop if the input was not
         # divisible by 8.
@@ -142,6 +141,8 @@ class Dinov2Head(nn.Module):
 class MidasNetSemantics(MidasNetSmall):
     """forward(x (B, 3, H, W)) -> (B, H, W) non-negative relative depth."""
 
+    DEAD_KEY_PREFIXES = DEAD_KEY_PREFIXES
+
     def __init__(self, features: int = 64, backbone: str = "efficientnet_lite3",
                  dinov2_type: str = "dinov2_vits14", dinov2_image_size=(224, 280)):
         super().__init__(features, backbone)
@@ -157,19 +158,19 @@ class MidasNetSemantics(MidasNetSmall):
         self.depth_head = nn.Sequential(
             ResidualBlock(f // 2, f // 4), Conv(f // 4, 1, 3, 1, 1), nn.ReLU())
 
-    def forward(self, x, attention=window_attention):
-        """``attention`` is the cross-attention's window op;
-        ``kernels.window_attention_plain`` runs the plain version on any device."""
+    def forward(self, x, plain: bool = False):
+        """``plain=True`` runs every kernel op's plain version (K4 in the
+        DINOv2 branch, K1 in the cross-attention) on any device."""
         midas_features = super().forward(x)
         dh, dw = self.dinov2_image_size
         patch = self.dinov2.patch
         with torch.no_grad():  # the DINOv2 branch is frozen
             x_d = resize_bilinear(x, (dh, dw), align_corners=True)
-            token_layers = self.dinov2(x_d, n_layers=4)
+            token_layers = self.dinov2(x_d, n_layers=4, plain=plain)
         dinov2_features = self.dinov2_head(token_layers, dh // patch, dw // patch)
         dinov2_features = resize_bilinear(dinov2_features, midas_features.shape[-2:],
                                           align_corners=True)
-        attended = self.cross_attention(midas_features, dinov2_features, attention)
+        attended = self.cross_attention(midas_features, dinov2_features, plain)
         fused = self.fusion_blocks(torch.cat([attended, midas_features], dim=1))
         depth = self.depth_head(self.fusion_head(fused))
         return depth[:, 0]

@@ -1,14 +1,16 @@
-"""DINOv2 Vision Transformer, returning its last blocks' tokens (port of
+"""DINOv2 Vision Transformer, returning chosen blocks' tokens (port of
 mde_tpu/nn/vit.py, the ``dinov2_*`` variants).
 
 Named as facebookresearch/dinov2's DinoVisionTransformer (cls_token,
 pos_embed, mask_token, patch_embed.proj, blocks.i.{norm1,attn,ls1,norm2,mlp,ls2},
 norm), so its state_dict is a DINOv2 checkpoint's. ``forward`` has
 ``get_intermediate_layers(x, n, norm=True)`` semantics: the outputs of the last
-``n`` blocks, each through the final LayerNorm, class token dropped.
+``n`` blocks, or of the blocks in ``out_indices``, each through the final
+LayerNorm, class token dropped.
 
-Attention is a plain matmul and softmax in float32, as the JAX package leaves it
-to XLA (mde_tpu/nn/vit.py:52-68).
+Attention is ``ops.kernels.flash_attention`` (K4, a CUDA kernel on the card):
+float32 logits and softmax, the math of the JAX einsum path
+(mde_tpu/nn/vit.py:52-68). ``plain=True`` runs its plain version on any device.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels import flash_attention, flash_attention_plain
 from ..ops.resize import resize_bicubic
 from .blocks import LayerNorm
 
@@ -45,15 +48,12 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, plain: bool = False):
         b, n, c = x.shape
-        hd = c // self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # (B, heads, N, hd)
-        logits = torch.matmul(q.float(), k.float().transpose(-2, -1))
-        attn = torch.softmax(logits * hd**-0.5, dim=-1)
-        out = torch.matmul(attn.to(v.dtype), v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        attend = flash_attention_plain if plain else flash_attention
+        out = attend(*qkv.unbind(2))  # q/k/v: (B, N, heads, hd) views, read in place
+        return self.proj(out.reshape(b, n, c))
 
 
 class LayerScale(nn.Module):
@@ -82,8 +82,8 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, 4 * dim)
         self.ls2 = LayerScale(dim)
 
-    def forward(self, x):
-        x = x + self.ls1(self.attn(self.norm1(x)))
+    def forward(self, x, plain: bool = False):
+        x = x + self.ls1(self.attn(self.norm1(x), plain))
         return x + self.ls2(self.mlp(self.norm2(x)))
 
 
@@ -97,7 +97,8 @@ class PatchEmbed(nn.Module):
 
 
 class ViT(nn.Module):
-    """forward(x (B, 3, H, W), n_layers) -> list of (B, ph*pw, dim) token maps."""
+    """forward(x (B, 3, H, W), n_layers | out_indices) -> list of (B, ph*pw, dim)
+    token maps."""
 
     POS_GRID = (37, 37)  # DINOv2's 518/14 pretrain grid
 
@@ -122,7 +123,9 @@ class ViT(nn.Module):
                                                 b=0.04, generator=generator))
         self.mask_token.zero_()
 
-    def forward(self, x, n_layers: int = 4):
+    def forward(self, x, n_layers: int = 4, out_indices=None, plain: bool = False):
+        """The last ``n_layers`` blocks' tokens, or those of the blocks in
+        ``out_indices`` (in block order); ``plain=True`` runs K4's plain version."""
         b, _, h, w = x.shape
         ph, pw = h // self.patch, w // self.patch
         tokens = self.patch_embed(x)
@@ -137,10 +140,11 @@ class ViT(nn.Module):
         tokens = tokens + patch_pos
         cls = (self.cls_token + cls_pos).expand(b, -1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
+        depth = len(self.blocks)
+        take = set(out_indices if out_indices is not None else range(depth - n_layers, depth))
         outputs = []
-        first = len(self.blocks) - n_layers
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens)
-            if i >= first:
+            tokens = blk(tokens, plain)
+            if i in take:
                 outputs.append(tokens)
         return [self.norm(t)[:, 1:] for t in outputs]

@@ -12,7 +12,10 @@ a plain C interface, loaded with ``ctypes``:
   (pallas_kernels.py:56-144), forward and backward;
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
-  precedes it in ``preprocess_eval``.
+  precedes it in ``preprocess_eval``;
+- ``flash_attention`` (csrc/flash_attention.cu) replaces ``flash_attention``
+  (mde_tpu/ops/flash_attention.py:39-80), in float32 and in bfloat16; every
+  ViT attention of the port runs through it.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
@@ -125,6 +128,9 @@ def load():
             lib.mde_si_loss_backward_f32.restype = i
             lib.mde_preprocess_u8_f32.argtypes = [p, p, i, i, i, i, i, f, f, f, f, f, f, p]
             lib.mde_preprocess_u8_f32.restype = i
+            for name in ("mde_flash_attention_f32", "mde_flash_attention_bf16"):
+                getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, ll, ll, f, p]
+                getattr(lib, name).restype = i
             lib.mde_error_string.argtypes = [i]
             lib.mde_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -424,3 +430,105 @@ def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
 
 
 preprocess_u8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: full (non-causal) attention over ViT tokens
+# ---------------------------------------------------------------------------
+
+FLASH_HEAD_DIM = 64  # the kernel's head dim: DINOv2's 384/6, 768/12 and 1024/16
+
+
+def flash_attention_plain(q, k, v):
+    """Plain version: softmax(q k^T / sqrt(D)) v per (batch, head), the math
+    of mde_tpu/ops/flash_attention.py::attention_reference.
+
+    q/k/v: (B, N, H, D) float32 or bfloat16 (the JAX layout) -> (B, N, H, D).
+    Logits, softmax and the weighted sum in float32, with autocast off so they
+    stay so inside a bf16 region, as in the kernel; the output is rounded once
+    to ``v``'s dtype. It is the reference of both kernel forms. In bf16 the JAX
+    reference (and the JAX ViT, mde_tpu/nn/vit.py:66) rounds the normalised
+    probabilities to bf16 before the second product; this version does not.
+    """
+    d = q.shape[-1]
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        attn = torch.softmax(logits * d**-0.5, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v.float())
+    return out.to(v.dtype)
+
+
+def _flash_shape(q, k, v):
+    """The kernel's conditions on q/k/v other than the device type; returns
+    (B, N, H, D)."""
+    _require(k.device == q.device and v.device == q.device,
+             "flash_attention: all inputs must be on one device")
+    _require(q.dim() == 4 and q.shape == k.shape == v.shape,
+             f"flash_attention: q/k/v must share a (B, N, H, D) shape, got "
+             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, n, h, d = q.shape
+    _require(d == FLASH_HEAD_DIM,
+             f"flash_attention: head dim {d}; the kernel takes {FLASH_HEAD_DIM}")
+    _require(q.dtype in (torch.float32, torch.bfloat16) and k.dtype == v.dtype == q.dtype,
+             "flash_attention: the kernel takes q/k/v all float32 or all bfloat16, got "
+             f"{q.dtype}, {k.dtype}, {v.dtype}")
+    # (H, D) contiguous, batch and token strides free (the views of a fused
+    # qkv projection), every row start 16-byte aligned for vector loads.
+    stride_b, stride_n, stride_h, stride_d = q.stride()
+    _require(q.stride() == k.stride() == v.stride() and stride_d == 1 and stride_h == d
+             and stride_b % 8 == 0 and stride_n % 8 == 0,
+             "flash_attention: q/k/v must share strides with (H, D) contiguous and batch "
+             f"and token strides a multiple of 8, got {q.stride()}, {k.stride()}, {v.stride()}")
+    _require(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
+             "flash_attention: q/k/v must start 16-byte aligned")
+    _require(0 < n and 0 < b * h < 2**31 and -(-n // 64) <= 65535,
+             f"flash_attention: (B, N, H) = {(b, n, h)} out of the kernel's grid")
+    return b, n, h, d
+
+
+def _flash_attention_forward(q, k, v):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    _require(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
+    b, n, h, d = _flash_shape(q, k, v)
+    dtype = q.dtype
+    stride_b, stride_n = q.stride()[:2]
+    out = torch.empty((b, n, h, d), dtype=dtype, device=q.device)
+    lib = load()
+    bf16 = dtype == torch.bfloat16
+    fn = lib.mde_flash_attention_bf16 if bf16 else lib.mde_flash_attention_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,
+             stride_b, stride_n, d**-0.5, _stream(q))
+    _check(lib, err, "flash_attention")
+    if bf16:
+        flash_attention.bf16_launches += 1
+    else:
+        flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; the backward recomputes through the plain version and
+    saves no probabilities (the JAX kernel has no VJP of its own)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_attention_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = flash_attention_plain(*leaves)
+            return torch.autograd.grad(out, leaves, grad.to(v.dtype))
+
+
+def flash_attention(q, k, v):
+    """Full attention, (B, N, H, D) -> (B, N, H, D); see the plain version."""
+    return _FlashAttention.apply(q, k, v)
+
+
+flash_attention.launches = 0  # float32 kernel
+flash_attention.bf16_launches = 0

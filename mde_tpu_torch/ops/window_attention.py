@@ -6,7 +6,7 @@ attention over all windows: pad the projected q/k/v with zeros to window
 multiples, partition into (B, N_windows, T, C), attend with each window's
 key-validity row so padded keys get no weight, then unpartition and crop.
 The attention itself is ``ops.kernels.window_attention`` (a CUDA kernel on
-the card, its plain version on the CPU).
+the card, its plain version on the CPU, or on any device with ``plain=True``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .kernels import window_attention
+from .kernels import window_attention, window_attention_plain
 
 
 def _window_partition(x: torch.Tensor, ws: int):
@@ -42,12 +42,11 @@ def _window_key_validity(h: int, w: int, hp: int, wp: int, ws: int) -> np.ndarra
 
 
 def windowed_cross_attention(q, k, v, num_heads: int, window_size: int = 16,
-                             attention=window_attention) -> torch.Tensor:
+                             plain: bool = False) -> torch.Tensor:
     """Multi-head attention within aligned windows of a 2D grid.
 
     q, k, v: (B, H, W, C) projected token grids, C = num_heads * head_dim.
-    ``attention`` is the (B, N, T, C) window op; callers pass
-    ``kernels.window_attention_plain`` to run the plain version on any device.
+    ``plain=True`` runs the window op's plain version on any device.
     Returns (B, H, W, C) in ``v``'s dtype.
     """
     _, h, w, _ = q.shape
@@ -59,5 +58,6 @@ def windowed_cross_attention(q, k, v, num_heads: int, window_size: int = 16,
     kw, _, _ = _window_partition(F.pad(k, pad), ws)
     vw, _, _ = _window_partition(F.pad(v, pad), ws)
     key_valid = torch.from_numpy(_window_key_validity(h, w, hp, wp, ws)).to(q.device)
+    attention = window_attention_plain if plain else window_attention
     out = attention(qw.contiguous(), kw.contiguous(), vw.contiguous(), num_heads, key_valid)
     return _window_unpartition(out, ws, nh, nw)[:, :h, :w, :]

@@ -18,7 +18,6 @@ from ..core import config as config_lib
 from ..data.dataset import DepthDataset, split_train_val
 from ..data.loader import HostLoader
 from ..models.factory import build_model
-from ..models.midas_semantics import DEAD_KEY_PREFIXES
 from ..train.checkpoint import load_checkpoint
 
 
@@ -96,11 +95,12 @@ def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
     return loaders
 
 
-def live_missing_keys(report: dict) -> list[str]:
-    """Keys a checkpoint left unset that the forward reads: the load report's
-    missing keys less BN's ``num_batches_tracked`` and the dead keys."""
-    return [k for k in report["missing"]
-            if not k.endswith("num_batches_tracked") and not k.startswith(DEAD_KEY_PREFIXES)]
+def live_missing_keys(model, report: dict) -> list[str]:
+    """Keys a checkpoint left unset that ``model``'s forward reads: the load
+    report's missing keys less BN's ``num_batches_tracked`` and the model's
+    own dead keys (its class's ``DEAD_KEY_PREFIXES``)."""
+    return [k for k in report["missing"] if not k.endswith("num_batches_tracked")
+            and not k.startswith(model.DEAD_KEY_PREFIXES)]
 
 
 def bootstrap_model(cfg, device="cpu", checkpoint: Optional[str] = None):

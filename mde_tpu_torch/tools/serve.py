@@ -409,7 +409,7 @@ def build_service(cfg, device="cuda", max_batch: int = 8, window_ms: float = 5.0
         )
     model, report = bootstrap_model(cfg, device, checkpoint=ckpt)
     if report is not None:
-        missing = live_missing_keys(report)
+        missing = live_missing_keys(model, report)
         if missing:
             raise ValueError(
                 f"checkpoint {ckpt} leaves {len(missing)} weights of the model "

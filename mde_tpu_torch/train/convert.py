@@ -1,10 +1,11 @@
-"""JAX flagship parameters -> the port's state_dict.
+"""JAX model parameters -> the port's state_dict.
 
-``state_dict_from_flax`` is the inverse of
-mde_tpu/train/torch_import.py::map_midas_semantics_key (:437-500) with the
-layouts of its ``convert_tensor`` (:49-67). It takes the flax parameter and
-batch-statistics trees as nested dicts of numpy arrays (flax names) and needs
-no flax or jax itself:
+``state_dict_from_flax`` is the inverse of the JAX package's import maps, with
+the layouts of its ``convert_tensor`` (mde_tpu/train/torch_import.py:49-67):
+``map_midas_semantics_key`` (:437-500) for the flagship, and
+``map_depth_anything_key`` (:702-718) for Depth-Anything-V2. It takes the flax
+parameter and batch-statistics trees as nested dicts of numpy arrays (flax
+names) and needs no flax or jax itself:
 
   conv            HWIO          -> OIHW
   depthwise conv  (H, W, 1, O)  -> (O, 1, H, W)
@@ -14,8 +15,8 @@ no flax or jax itself:
   LayerNorm       scale/bias    -> weight/bias
   DINOv2          pos_embed, cls_token, LayerScale gammas as they are
 
-The reference grammar's dead keys (see models/midas_semantics.py) and BN's
-``num_batches_tracked`` have no flax counterpart and are not produced.
+The reference grammar's dead keys (each model's ``DEAD_KEY_PREFIXES``) and
+BN's ``num_batches_tracked`` have no flax counterpart and are not produced.
 """
 
 from __future__ import annotations
@@ -45,24 +46,38 @@ def _seq(name: str, offset: int):
     return lambda m: f"cross_attention.{name}.{3 * int(m[1]) + offset}"
 
 
-# (flax module path joined with "/", torch module key); first match wins.
-_MODULE_RULES = [
+def _vit_rules(flax: str, port: str):
+    """The DINOv2 trunk: the module itself holds cls_token and pos_embed."""
+    return [
+        (flax, lambda m: port),
+        (rf"{flax}/patch_embed", lambda m: f"{port}.patch_embed.proj"),
+        (rf"{flax}/blocks_(\d+)/(.+)", lambda m: f"{port}.blocks.{m[1]}.{m[2]}"),
+        (rf"{flax}/norm", lambda m: f"{port}.norm"),
+    ]
+
+
+def _dinov2_head_rules(flax: str, port: str):
+    """models/midas_semantics.py::Dinov2Head; the flagship's ends at output_conv2.0."""
+    return [
+        (rf"{flax}/projects_(\d)", lambda m: f"{port}.projects.{m[1]}"),
+        (rf"{flax}/resize_(\d)", lambda m: f"{port}.resize_layers.{m[1]}"),
+        (rf"{flax}/scratch/(layer\d_rn)", lambda m: f"{port}.scratch.{m[1]}"),
+        (rf"{flax}/(refinenet\d/.+)", lambda m: f"{port}.scratch.{m[1]}"),
+        (rf"{flax}/output_conv1", lambda m: f"{port}.scratch.output_conv1"),
+        (rf"{flax}/output_conv2_0", lambda m: f"{port}.scratch.output_conv2.0"),
+    ]
+
+
+# Per model: (flax module path joined with "/", torch module key); first match wins.
+_FLAGSHIP_RULES = [
     (r"midas/pretrained/conv_stem", lambda m: "pretrained.layer1.0"),
     (r"midas/pretrained/bn1", lambda m: "pretrained.layer1.1"),
     (r"midas/pretrained/blocks_(\d)_(\d+)/(\w+)", _effnet_block),
     (r"midas/scratch/(layer\d_rn)", lambda m: f"scratch.{m[1]}"),
     (r"midas/(refinenet\d/.+)", lambda m: f"scratch.{m[1]}"),
     (r"midas/output_conv(\d)", lambda m: f"scratch.output_conv.{m[1]}"),
-    (r"dinov2", lambda m: "dinov2"),
-    (r"dinov2/patch_embed", lambda m: "dinov2.patch_embed.proj"),
-    (r"dinov2/blocks_(\d+)/(.+)", lambda m: f"dinov2.blocks.{m[1]}.{m[2]}"),
-    (r"dinov2/norm", lambda m: "dinov2.norm"),
-    (r"dinov2_head/projects_(\d)", lambda m: f"dinov2_head.projects.{m[1]}"),
-    (r"dinov2_head/resize_(\d)", lambda m: f"dinov2_head.resize_layers.{m[1]}"),
-    (r"dinov2_head/scratch/(layer\d_rn)", lambda m: f"dinov2_head.scratch.{m[1]}"),
-    (r"dinov2_head/(refinenet\d/.+)", lambda m: f"dinov2_head.scratch.{m[1]}"),
-    (r"dinov2_head/output_conv1", lambda m: "dinov2_head.scratch.output_conv1"),
-    (r"dinov2_head/output_conv2_0", lambda m: "dinov2_head.scratch.output_conv2.0"),
+    *_vit_rules("dinov2", "dinov2"),
+    *_dinov2_head_rules("dinov2_head", "dinov2_head"),
     (r"cross_attention/spatial_reduction/conv(\d)", _seq("spatial_reduction", 0)),
     (r"cross_attention/spatial_reduction/bn(\d)", _seq("spatial_reduction", 1)),
     (r"cross_attention/spatial_upsample_conv(\d)", _seq("spatial_upsample", 0)),
@@ -74,11 +89,20 @@ _MODULE_RULES = [
     (r"fusion_head_bn", lambda m: "fusion_head.2"),
 ]
 
+# DA-V2's release names: the JAX top-level ``final`` 1x1 is output_conv2.2.
+_DA2_RULES = [
+    *_vit_rules("pretrained", "pretrained"),
+    *_dinov2_head_rules("depth_head", "depth_head"),
+    (r"final", lambda m: "depth_head.scratch.output_conv2.2"),
+]
+
+MODEL_RULES = {"MidasNetSemantics": _FLAGSHIP_RULES, "DepthAnythingV2": _DA2_RULES}
+
 _NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
-def _module_key(path: str) -> str:
-    for pattern, key in _MODULE_RULES:
+def _module_key(rules, path: str) -> str:
+    for pattern, key in rules:
         m = re.fullmatch(pattern, path)
         if m:
             return key(m).replace("/", ".")
@@ -108,9 +132,11 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(params, batch_stats) -> dict:
-    """Flagship flax ``params`` and ``batch_stats`` -> the port's state_dict
-    (float32 CPU tensors, keys in the reference grammar)."""
+def state_dict_from_flax(params, batch_stats, model: str = "MidasNetSemantics") -> dict:
+    """Flax ``params`` and ``batch_stats`` of ``model`` (a ``MODEL_RULES`` key:
+    the class name of the port's module) -> the port's state_dict (float32
+    CPU tensors, keys in the reference grammar)."""
+    rules = MODEL_RULES[model]
     out = {}
     for tree in (params, batch_stats or {}):
         for path, value in _flatten(tree):
@@ -118,7 +144,7 @@ def state_dict_from_flax(params, batch_stats) -> dict:
             wrapper = None
             if mod and mod[-1] in ("Conv_0", "BatchNorm_0", "LayerNorm_0"):
                 wrapper, mod = mod[-1], mod[:-1]
-            module = _module_key("/".join(mod))
+            module = _module_key(rules, "/".join(mod))
             name, arr = _convert(module, wrapper, leaf, np.asarray(value, np.float32))
             out[f"{module}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -41,8 +41,7 @@ import torch
 from ..data.transforms import make_train_pipeline, preprocess_eval
 from ..losses.losses import combined_loss
 from ..metrics.metrics import evaluation_metrics, full_metric_suite
-from ..ops.kernels import (preprocess_u8_plain, si_loss_sums, si_loss_sums_plain,
-                           window_attention, window_attention_plain)
+from ..ops.kernels import preprocess_u8_plain, si_loss_sums, si_loss_sums_plain
 from ..ops.resize import resize_bilinear
 from .checkpoint import (checkpoint_path, load_state_dict, load_training_checkpoint,
                          save_training_checkpoint)
@@ -93,9 +92,8 @@ def forward_backward(model, cfg, rgb, depth, dtype=torch.float32, plain: bool = 
     microbatch share under accumulation). Returns the detached (loss, parts).
     """
     model.train()
-    attention = window_attention_plain if plain else window_attention
     with torch.autocast(rgb.device.type, dtype=dtype, enabled=dtype != torch.float32):
-        pred = model(rgb, attention=attention)
+        pred = model(rgb, plain=plain)
     total, parts = combined_loss(pred.float(), depth, cfg, rgb=rgb,
                                  sums=si_loss_sums_plain if plain else si_loss_sums)
     (total * scale).backward()
@@ -180,7 +178,6 @@ def make_predict_step(model, cfg, plain: bool = False) -> Callable:
     """
     input_size = tuple(int(s) for s in cfg.framework.input_size)
     native = tuple(int(s) for s in cfg.framework.native_size)
-    attention = window_attention_plain if plain else window_attention
 
     def step(rgb_u8: torch.Tensor) -> torch.Tensor:
         model.eval()
@@ -189,7 +186,7 @@ def make_predict_step(model, cfg, plain: bool = False) -> Callable:
                 rgb = preprocess_u8_plain(rgb_u8, input_size)
             else:
                 rgb = preprocess_eval(rgb_u8, input_size=input_size)
-            pred = model(rgb, attention=attention)
+            pred = model(rgb, plain=plain)
             return resize_bilinear(pred, native, align_corners=True)
 
     return step

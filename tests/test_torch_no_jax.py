@@ -3,8 +3,10 @@
 The GPU machine has no JAX, and may lack PIL. A fresh interpreter with an
 import hook that refuses ``jax``, ``jaxlib``, ``flax``, ``optax``,
 ``mde_tpu``, ``PIL`` and ``triton`` imports every module of
-``mde_tpu_torch``, then writes a synthetic dataset and decodes it through the
-loader (the zlib PNG writer and reader, no PIL).
+``mde_tpu_torch`` (Depth-Anything-V2 and K4's among them), builds DA-V2-S
+through the factory and runs it on a small image, then writes a synthetic
+dataset and decodes it through the loader (the zlib PNG writer and reader,
+no PIL).
 """
 
 import subprocess
@@ -29,6 +31,15 @@ SCRIPT = textwrap.dedent('''
     names = [m.name for m in pkgutil.walk_packages(mde_tpu_torch.__path__, "mde_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    assert "mde_tpu_torch.models.depth_anything" in names
+    import torch
+    from mde_tpu_torch.core import config
+    from mde_tpu_torch.models.factory import build_model
+    cfg = config.defaults()
+    cfg.model.model_type = "DepthAnythingV2_vits"
+    model = build_model(cfg.model, "cpu", torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        assert model(torch.zeros(1, 3, 28, 42)).shape == (1, 28, 42)
     from mde_tpu_torch.data import dataset, loader, native, synthetic
     native.available = lambda: False  # decode through the port's own PNG reader
     with tempfile.TemporaryDirectory() as root:
@@ -46,4 +57,4 @@ def test_port_imports_and_loads_data_without_jax_pil_or_triton():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
                           cwd=Path(__file__).resolve().parent.parent, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 25  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 26  # every module of the package was imported
