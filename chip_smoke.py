@@ -12,23 +12,33 @@ Phases, each printing JSON lines:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build    nvcc builds the port's kernels from mde_tpu_torch/csrc;
   3. kernels  each kernel against its plain PyTorch version on the card, at the
-              serving and training paths' shapes: errors and CUDA-event median
-              times (K1 float32 and bf16, K3, K2 forward and backward, K4
-              float32 and bf16 at six shapes, and K4's gradient);
+              serving and training paths' shapes: errors, per-call CUDA-event
+              median times (``ms``, host launch included), device times over
+              50 back-to-back launches (``device_ms``), the least time the card
+              could take for the same work (``bound_ms``, bytes or operations
+              over the H100's published peaks) and one PyTorch call computing
+              the same function as a yardstick (``library_ms``; the port never
+              calls it). K1 float32 and bf16, K3, K2 forward and backward, K4
+              float32 and bf16 at six shapes, and K4's backward kernel in both
+              types at four shapes against autograd through the plain version;
   4. serve    for each model: a checkpoint behind the port's HTTP server,
               answering concurrent .npy requests; replies are checked for shape
               and finiteness, against the plain-version predict step on the card
-              and against the CPU; the path's kernels must have been launched
-              while the requests were served; the predict step's host time by
-              bucket, and at buckets 1 and 8 against the plain versions;
+              and against the CPU; the path's kernels, and no other, must have
+              been launched while the requests were served; the predict step's
+              host time by bucket, at buckets 1 and 8 against the plain
+              versions, and its CUDA-event time and profiler split there;
   5. train    for each model at batch 4: (a) one float32 train step through the
               kernels against the same step through the plain versions (loss
               and gradients); (b) two bf16 autocast steps; (d) the train step's
               CUDA-event times, peak memory and the profiler's split of its
               device time; (c) the training CLI for 2 epochs on generated data,
               with its checkpoint and test predictions checked and every
-              kernel of the path launched.
-Then a line with every kernel's numbers and its launches by path, and last
+              kernel of the path launched. DA-V2's train steps must launch K4's
+              backward once per attention block a step, and no softmax
+              backward; the flagship's frozen DINOv2 launches none.
+Then a line with every kernel's numbers and its launches by path (a train
+path's are those of its checks (a), (b) and (c)), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -40,6 +50,7 @@ import copy
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +78,13 @@ K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
 K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
             ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
             ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)))
-TOL_K4_GRAD = 1e-5  # rel-L2 of dq/dk/dv, kernel forward vs plain forward, float32
+# K4's backward cases: DA-V2-S training, DA-V2-L, the flagship's branch, ragged.
+K4_BWD_CASES = ("da2s_train", "da2l", "flagship_b1", "ragged")
+TOL_K4_GRAD = 1e-5  # rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
+# bf16: the kernel rounds P and dS to bf16 for their products (2^-9 relative
+# each) and reads the bf16-rounded output for delta; the reference keeps both
+# float32. Each gradient is rounded to bf16 once in both.
+TOL_K4_GRAD_BF16 = 2e-2
 DA2_SETS = ("model.model_type=DepthAnythingV2_vits", "framework.input_size=[448,588]")
 TOL_KERNEL = 1e-5  # kernel vs plain, float32, same inputs
 TOL_K2 = 1e-5  # K2 sums relative; backward max-abs over the plain gradient's max-abs
@@ -84,6 +101,16 @@ TOL_SERVED = 1e-4  # served reply vs plain-version predict step on the card
 # depths close to a constant, so an absolute bound alone would say little.
 TOL_SERVED_SPREAD = 1e-3
 N_CLIENTS, N_PER_CLIENT = 6, 4
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): a
+# bound is the larger of bytes over the memory rate and operations over the
+# rate of the type they run in.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+
+
+# The keys every row of the final kernels line carries.
+ROW_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "device_ms", "bound_ms", "bound_by", "library_ms"}
 
 
 def emit(obj) -> None:
@@ -110,6 +137,40 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 50, warmup: int = 3) -> float:
+    """Device time per call: CUDA events around ``n`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def bound(flop: float, nbytes: float, rate: str) -> dict:
+    """The least time the card could take: ``flop`` operations at the peak of
+    ``rate`` against ``nbytes`` (each input read once, each output written
+    once) at the memory rate, whichever is larger."""
+    ops_ms = flop / PEAK_FLOPS[rate] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def timings(kernel_fn, plain_fn, library_fn, work: dict) -> dict:
+    """Per-call and back-to-back times of a kernel, its plain version and its
+    library yardstick (None where no one PyTorch call computes the function),
+    beside the bound ``work``."""
+    out = {"ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
+           "device_ms": device_ms(kernel_fn), "plain_device_ms": device_ms(plain_fn),
+           "library_ms": None if library_fn is None else device_ms(library_fn), **work}
+    out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
 def phase_device() -> tuple[str, str]:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -132,7 +193,27 @@ def phase_build() -> None:
     so = kernels.build()
     kernels.load()
     emit({"phase": "build", "library": so.name, "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": kernels.build_seconds})
+          "nvcc_seconds": kernels.build_seconds, "ptxas": _ptxas(kernels.build_log)})
+
+
+def _ptxas(log: dict) -> list:
+    """Registers, spills and static shared memory of every kernel, from
+    nvcc's -Xptxas -v report of each source."""
+    rows, cur = [], None
+    for src, text in sorted(log.items()):
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                cur = {"source": src, "kernel": line.split("'")[1]}
+                rows.append(cur)
+            elif cur is not None:
+                for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"),
+                                 ("static_smem", r"(\d+) bytes smem")):
+                    m = re.search(pat, line)
+                    if m:
+                        cur[key] = int(m.group(1))
+    return rows
 
 
 def phase_kernels() -> dict:
@@ -154,14 +235,14 @@ def phase_kernels() -> dict:
         want = K.window_attention_plain(q, k, v, heads, m)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ms = cuda_ms(lambda: K.window_attention(q, k, v, heads, m))
-        plain_ms = cuda_ms(lambda: K.window_attention_plain(q, k, v, heads, m))
+        row = dict(max_abs_err=err)
+        if label == "flagship":  # timed at the serving path's shape
+            row.update(_k1_timings(K, q, k, v, heads, m, "f32"))
         emit({"phase": "kernels", "kernel": "window_attention", "case": label,
-              "shape": list(shape), "heads": heads, "max_abs_err": err, "ms": ms,
-              "plain_ms": plain_ms})
+              "shape": list(shape), "heads": heads, **row})
         check(bool(torch.isfinite(got).all()), f"window_attention {label}: non-finite output")
         check(err <= TOL_KERNEL, f"window_attention {label}: max-abs {err} > {TOL_KERNEL}")
-        results.setdefault("window_attention", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        results.setdefault("window_attention", row)
 
     # K1 bf16 at the train step's flagship shape, against the plain version
     # fed the same bf16 inputs (it computes in float32 and rounds once).
@@ -173,14 +254,12 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     check(got.dtype == torch.bfloat16, f"window_attention bf16: output {got.dtype}")
     err = (got.float() - want.float()).abs().max().item()
-    ms = cuda_ms(lambda: K.window_attention(q, k, v, heads, m))
-    plain_ms = cuda_ms(lambda: K.window_attention_plain(q, k, v, heads, m))
+    row = dict(max_abs_err=err, **_k1_timings(K, q, k, v, heads, m, "bf16"))
     emit({"phase": "kernels", "kernel": "window_attention_bf16", "case": "flagship_train",
-          "shape": list(shape), "heads": heads, "max_abs_err": err, "ms": ms,
-          "plain_ms": plain_ms})
+          "shape": list(shape), "heads": heads, **row})
     check(bool(torch.isfinite(got).all()), "window_attention bf16: non-finite output")
     check(err <= TOL_K1_BF16, f"window_attention bf16: max-abs {err} > {TOL_K1_BF16}")
-    results["window_attention_bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["window_attention_bf16"] = row
 
     # K2 at the flagship train step's shape (n = 126 * 2048 a sample), at
     # DA-V2's (n = 128.6 * 2048: a ragged last chunk) and at small ragged
@@ -197,25 +276,45 @@ def phase_kernels() -> dict:
         want = K.preprocess_u8_plain(rgb, size)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ms = cuda_ms(lambda: K.preprocess_u8(rgb, size))
-        plain_ms = cuda_ms(lambda: K.preprocess_u8_plain(rgb, size))
+        # u8 NHWC read once, float32 NCHW written once; ~12 FLOP an output
+        # value (two bilinear blends and the normalise); no one PyTorch call
+        # resizes and normalises.
+        work = bound(12 * got.numel(), rgb.numel() + 4 * got.numel(), "f32")
+        row = dict(max_abs_err=err, **timings(lambda: K.preprocess_u8(rgb, size),
+                                              lambda: K.preprocess_u8_plain(rgb, size), None,
+                                              work))
         emit({"phase": "kernels", "kernel": "preprocess_u8", "case": label,
-              "shape": [4, 426, 560, 3], "out": list(got.shape), "max_abs_err": err, "ms": ms,
-              "plain_ms": plain_ms})
+              "shape": [4, 426, 560, 3], "out": list(got.shape), **row})
         check(tuple(got.shape) == (4, 3, *size), f"preprocess_u8 {label}: shape {tuple(got.shape)}")
         check(err <= TOL_KERNEL, f"preprocess_u8 {label}: max-abs {err} > {TOL_KERNEL}")
-        results.setdefault("preprocess_u8", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        results.setdefault("preprocess_u8", row)
         results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
     results.update(_check_k4(K, g))
     return results
 
 
+def _k4_flop(b: int, n: int, h: int, d: int) -> int:
+    """The forward's two products, 4 B H N^2 D; the backward does 2.5x that."""
+    return 4 * b * h * n * n * d
+
+
+def _k4_bound(flop: float, nbytes: float, dtype) -> dict:
+    """bf16 on the tensor cores; float32 as the kernel runs it, 3xTF32 (three
+    TF32 products a product, the least time for float32 accuracy), with the
+    float32 CUDA-core bound beside it."""
+    if dtype == torch.bfloat16:
+        return bound(flop, nbytes, "bf16")
+    return {**bound(3 * flop, nbytes, "tf32"), "bound_rate": "3xTF32",
+            "bound_f32_cuda_cores_ms": bound(flop, nbytes, "f32")["bound_ms"]}
+
+
 def _check_k4(K, g) -> dict:
     """K4 at every case in both element types, on the (B, N, 3, H, D) views of
     a fused qkv tensor as the ViT hands them over, against its plain version
-    fed the same inputs; then its gradient. The kernel rows carry the largest
-    error over the cases and the times at DA-V2-S's training shape."""
+    fed the same inputs; then its backward kernel. The kernel rows carry the
+    largest error over the cases and the times at DA-V2-S's training shape."""
     out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype, name, tol in ((torch.float32, "flash_attention", TOL_KERNEL),
                              (torch.bfloat16, "flash_attention_bf16", TOL_K1_BF16)):
         cases = {}
@@ -227,28 +326,94 @@ def _check_k4(K, g) -> dict:
             check(got.dtype == dtype and bool(torch.isfinite(got).all()),
                   f"{name} {label}: {got.dtype} output, or non-finite")
             err = (got.float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: K.flash_attention(q, k, v))
-            plain_ms = cuda_ms(lambda: K.flash_attention_plain(q, k, v))
-            cases[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            tq, tk, tv = (x.transpose(1, 2) for x in (q, k, v))
+            work = _k4_bound(_k4_flop(b, n, h, d), 4 * q.numel() * q.element_size(), dtype)
+            cases[label] = dict(max_abs_err=err, **timings(
+                lambda: K.flash_attention(q, k, v), lambda: K.flash_attention_plain(q, k, v),
+                lambda: sdpa(tq, tk, tv), work))
             emit({"phase": "kernels", "kernel": name, "case": label, "shape": [b, n, h, d],
                   **cases[label]})
             check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
-        out[name] = dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-                         ms=cases["da2s_train"]["ms"], plain_ms=cases["da2s_train"]["plain_ms"])
-
-    # The gradient: autograd through the kernel's forward against autograd
-    # through the plain one, float32, at the flagship's shape and a ragged one.
-    for label, shape in (("flagship_b1", (1, 321, 6, 64)), ("ragged", (2, 130, 6, 64))):
-        q, k, v, cot = (torch.randn(shape, generator=g).cuda() for _ in range(4))
-        grads = []
-        for fn in (K.flash_attention, K.flash_attention_plain):
-            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-            grads.append(torch.autograd.grad(fn(*leaves), leaves, cot))
-        rel = max(_rel_l2(a, b) for a, b in zip(*grads))
-        emit({"phase": "kernels", "kernel": "flash_attention_grad", "case": label,
-              "shape": list(shape), "max_rel_l2": rel})
-        check(rel <= TOL_K4_GRAD, f"flash_attention gradient {label}: rel-L2 {rel}")
+        out[name] = dict(cases["da2s_train"],
+                         max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+    for dtype, name, tol in ((torch.float32, "flash_attention_backward", TOL_K4_GRAD),
+                             (torch.bfloat16, "flash_attention_backward_bf16", TOL_K4_GRAD_BF16)):
+        cases = {label: _check_k4_backward(K, g, label, shape, dtype, name, tol)
+                 for label, shape in K4_CASES if label in K4_BWD_CASES}
+        out[name] = dict(cases["da2s_train"],
+                         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                         max_rel_l2=max(c["max_rel_l2"] for c in cases.values()))
     return out
+
+
+def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) -> dict:
+    """The backward kernel (fed the kernel forward's output and lse) and its
+    plain version against autograd through ``flash_attention_plain`` on the
+    same inputs and cotangent; the kernel twice, for the same bits. Times: the
+    kernel alone, the recompute backward it replaced (plain forward + autograd),
+    and SDPA's backward through autograd on a retained graph."""
+    b, n, h, d = shape
+    q, k, v = torch.randn((b, n, 3, h, d), generator=g).to("cuda", dtype).unbind(2)
+    cot = torch.randn(shape, generator=g).to("cuda", dtype)
+    o, lse = K._flash_attention_forward(q, k, v, True)
+    got = K._flash_attention_backward(q, k, v, o, lse, cot)
+    again = K._flash_attention_backward(q, k, v, o, lse, cot)
+    plain = K.flash_attention_backward_plain(q, k, v, o, lse, cot)
+
+    def recompute():
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            return torch.autograd.grad(K.flash_attention_plain(*leaves), leaves, cot)
+
+    want = recompute()
+    torch.cuda.synchronize()
+    rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(got, want))
+    plain_rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(plain, want))
+    err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+    same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+    # The autograd Function (forward with lse, then the kernel backward) on
+    # contiguous copies of the views gives the same bits.
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    via_function = torch.autograd.grad(K.flash_attention(*leaves), leaves, cot)
+    same_bits = same_bits and all(torch.equal(x, y) for x, y in zip(got, via_function))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in leaves))
+    lib_cot = cot.transpose(1, 2)
+    # Five products (S again, dP, dV, dK, dQ); q/k/v/o/dO read, dq/dk/dv
+    # written, lse read.
+    work = _k4_bound(2.5 * _k4_flop(b, n, h, d), 8 * q.numel() * q.element_size() + 4 * lse.numel(),
+                     dtype)
+    row = dict(max_abs_err=err, max_rel_l2=rel, plain_max_rel_l2=plain_rel, same_bits=same_bits,
+               **timings(lambda: K._flash_attention_backward(q, k, v, o, lse, cot), recompute,
+                         lambda: torch.autograd.grad(lib_out, leaves, lib_cot, retain_graph=True),
+                         work))
+    emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape), **row})
+    check(all(x.dtype == dtype and x.shape == shape and bool(torch.isfinite(x).all())
+              for x in got), f"{name} {label}: gradients of the wrong dtype or shape, or non-finite")
+    check(rel <= tol, f"{name} {label}: rel-L2 {rel} > {tol} against autograd")
+    check(plain_rel <= tol, f"{name} {label}: plain version rel-L2 {plain_rel} > {tol}")
+    check(same_bits, f"{name} {label}: two runs, or the autograd Function, gave other bits")
+    return row
+
+
+def _k1_timings(K, q, k, v, heads: int, m, dtype: str) -> dict:
+    """K1's times, its bound (4 B N heads T^2 hd FLOP against q/k/v/out and
+    the key mask) and its yardstick: scaled_dot_product_attention on the
+    (B N, heads, T, hd) view with a boolean key mask from ``key_valid``."""
+    b, n, t, c = q.shape
+    hd = c // heads
+
+    def split(x):
+        return x.reshape(b * n, t, heads, hd).transpose(1, 2)
+
+    mask = (m > 0).repeat(b, 1)[:, None, None, :]
+    sq, sk, sv = split(q), split(k), split(v)
+    work = bound(4 * b * n * heads * t * t * hd,
+                 4 * q.numel() * q.element_size() + 4 * m.numel(), dtype)
+    return timings(lambda: K.window_attention(q, k, v, heads, m),
+                   lambda: K.window_attention_plain(q, k, v, heads, m),
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       sq, sk, sv, attn_mask=mask), work)
 
 
 def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
@@ -265,9 +430,11 @@ def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
     rel = max(((s1 - r1).abs() / r1.abs()).max().item(), ((s2 - r2).abs() / r2.abs()).max().item())
     err = max((s1 - r1).abs().max().item(), (s2 - r2).abs().max().item())
     fwd = dict(max_abs_err=err, max_rel_err=rel)
-    if timed:
-        fwd.update(ms=cuda_ms(lambda: K.si_loss_sums(pred, target)),
-                   plain_ms=cuda_ms(lambda: K.si_loss_sums_plain(pred, target)))
+    n = pred.numel()
+    if timed:  # pred and target read once; two logs and four FLOP an element
+        fwd.update(timings(lambda: K.si_loss_sums(pred, target),
+                           lambda: K.si_loss_sums_plain(pred, target), None,
+                           bound(6 * n, 8 * n + 8 * b, "f32")))
     emit({"phase": "kernels", "kernel": "si_loss_sums", "case": label, "shape": list(shape),
           "sums": [r1.tolist(), r2.tolist()], **fwd})
     check(rel <= TOL_K2, f"si_loss_sums {label}: relative error {rel} > {TOL_K2}")
@@ -285,11 +452,11 @@ def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
     err = max((x - y).abs().max().item() for x, y in zip(got, want))
     rel = max(((x - y).abs().max() / y.abs().max()).item() for x, y in zip(got, want))
     bwd = dict(max_abs_err=err, max_rel_err=rel)
-    if timed:
-        bwd.update(
-            ms=cuda_ms(lambda: K._si_loss_sums_backward(pred, target, g1, g2, 1e-6, False)),
-            plain_ms=cuda_ms(
-                lambda: K.si_loss_sums_backward_plain(pred, target, g1, g2, 1e-6, False)))
+    if timed:  # pred and target read, dpred written; two logs and six FLOP an element
+        bwd.update(timings(
+            lambda: K._si_loss_sums_backward(pred, target, g1, g2, 1e-6, False),
+            lambda: K.si_loss_sums_backward_plain(pred, target, g1, g2, 1e-6, False), None,
+            bound(8 * n, 12 * n + 8 * b, "f32")))
     emit({"phase": "kernels", "kernel": "si_loss_sums_backward", "case": label,
           "shape": list(shape), "dtarget": need_target, **bwd})
     check(rel <= TOL_K2, f"si_loss_sums backward {label}: max-abs over max-abs {rel} > {TOL_K2}")
@@ -311,7 +478,9 @@ def _counters():
             "si_loss_sums": (K.si_loss_sums, "launches"),
             "si_loss_sums_backward": (K.si_loss_sums, "backward_launches"),
             "flash_attention": (K.flash_attention, "launches"),
-            "flash_attention_bf16": (K.flash_attention, "bf16_launches")}
+            "flash_attention_bf16": (K.flash_attention, "bf16_launches"),
+            "flash_attention_backward": (K.flash_attention, "backward_launches"),
+            "flash_attention_backward_bf16": (K.flash_attention, "backward_bf16_launches")}
 
 
 def reset_counts() -> None:
@@ -323,7 +492,8 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-# The kernels each path must launch (a path may launch others: none here).
+# The kernels each path must launch; it may launch no other (the flagship's
+# DINOv2 is frozen and runs under no_grad, so no K4 backward).
 PATH_KERNELS = {
     "flagship_serve": ("window_attention", "preprocess_u8", "flash_attention"),
     "flagship_train": ("window_attention", "window_attention_bf16", "preprocess_u8",
@@ -331,8 +501,18 @@ PATH_KERNELS = {
                        "flash_attention_bf16"),
     "da2_serve": ("preprocess_u8", "flash_attention"),
     "da2_train": ("preprocess_u8", "si_loss_sums", "si_loss_sums_backward", "flash_attention",
-                  "flash_attention_bf16"),
+                  "flash_attention_bf16", "flash_attention_backward",
+                  "flash_attention_backward_bf16"),
 }
+
+
+def check_path_launches(path: str, launches: dict, what: str, skip=()) -> None:
+    """Every kernel of the path launched (but those in ``skip``), and no other."""
+    for kernel, count in launches.items():
+        if kernel not in PATH_KERNELS[path]:
+            check(count == 0, f"{kernel} was launched {count} times {what}, off its path")
+        elif kernel not in skip:
+            check(count > 0, f"{kernel} was not launched {what}")
 
 
 def model_cfg(name: str, *sets: str):
@@ -437,8 +617,7 @@ def phase_serve(name: str) -> dict:
                 depths.append(d)
                 batch_sizes.append(int(headers["X-Batch-Size"]))
             check(max(batch_sizes) > 1, f"no request was coalesced: {batch_sizes}")
-            for kernel in PATH_KERNELS[path]:
-                check(launches[kernel] > 0, f"{kernel} was not launched while {path} served")
+            check_path_launches(path, launches, f"while {path} served")
 
             # The same weights, run through the plain versions on the card and on the CPU.
             ref_model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
@@ -459,6 +638,14 @@ def phase_serve(name: str) -> dict:
 
             bucket_ms = {str(b): _host_ms(service._step, np.zeros((b, h, w, 3), np.uint8))
                          for b in service.batcher.buckets}
+            # The predict step at buckets 1 and 8 on device-resident frames:
+            # CUDA-event time and the profiler's split of its device time.
+            predict_profile = {}
+            for b in (1, 8):
+                x = torch.from_numpy(images[:b]).cuda()
+                step_ms = cuda_ms(lambda: service._step(x), reps=8, warmup=2)
+                predict_profile[str(b)] = {
+                    "step_ms": step_ms, "profile": _profile_step(lambda: service._step(x), step_ms)}
             # Kernels against plain versions at buckets 1 and 8, in turns
             # plain, kernels, kernels, plain.
             ab = {}
@@ -474,7 +661,7 @@ def phase_serve(name: str) -> dict:
                    "launches": launches, "served_vs_plain_max_abs": served_err,
                    "served_vs_cpu_max_abs": cpu_err, "depth_mean": float(np.mean(depths)),
                    "depth_spread": spread, "predict_ms_by_bucket": bucket_ms,
-                   "predict_ms_kernels_vs_plain": ab}
+                   "predict_ms_kernels_vs_plain": ab, "predict_profile": predict_profile}
             emit(out)
             return launches
         finally:
@@ -526,15 +713,20 @@ def _profile_step(step, step_ms: float) -> dict:
     rows.sort(key=lambda r: -r[1])
     ours = {o: [0.0, 0] for o in ("window_attention_kernel", "si_partial_kernel",
                                   "si_finish_kernel", "si_backward_kernel",
-                                  "flash_attention_kernel")}
+                                  "flash_attention_kernel", "flash_attention_delta_kernel",
+                                  "flash_attention_dkdv_kernel", "flash_attention_dq_kernel")}
     for name, ms, n in rows:
         for o, acc in ours.items():
             if o in name:
                 acc[0] += ms
                 acc[1] += n
+    # A softmax backward comes only from a recompute backward through a plain
+    # attention (K1's in the flagship; none on DA-V2's path).
+    softmax_bwd = [[name[:90], ms, n] for name, ms, n in rows
+                   if "softmax" in name.lower() and "backward" in name.lower()]
     return {"device_ms": device_ms, "busy_share_of_step": device_ms / step_ms,
             "launches": sum(r[2] for r in rows),
-            "our_kernels": ours,
+            "our_kernels": ours, "softmax_backward": softmax_bwd,
             "our_kernels_share": sum(ms for ms, _ in ours.values()) / device_ms,
             "top": [[name[:90], ms, n] for name, ms, n in rows[:12]]}
 
@@ -546,6 +738,7 @@ def phase_train(name: str) -> dict:
     from mde_tpu_torch.tools.common import bootstrap_model, live_missing_keys
     from mde_tpu_torch.train.checkpoint import checkpoint_path, load_training_checkpoint
     from mde_tpu_torch.train.checkpoint import TRAINING_KEYS
+    from mde_tpu_torch.nn.vit import Attention
     from mde_tpu_torch.train.trainer import (forward_backward, make_optimizer, make_train_step,
                                              step_generator)
 
@@ -564,6 +757,16 @@ def phase_train(name: str) -> dict:
     depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
     out = {"phase": "train", "model": name, "batch": TRAIN_SHAPE[0],
            "input_size": list(input_size)}
+    # K4's backward runs once per attention block a step on DA-V2's trunk;
+    # the flagship's DINOv2 is frozen and launches none.
+    n_attn = sum(isinstance(m, Attention) for m in model.modules()) if name == "da2" else 0
+
+    def check_k4_backward(launches: dict, steps: int, what: str) -> None:
+        bf16 = what != "a"
+        want = {"flash_attention_backward": 0 if bf16 else n_attn * steps,
+                "flash_attention_backward_bf16": n_attn * steps if bf16 else 0}
+        got = {k: launches[k] for k in want}
+        check(got == want, f"{path} ({what}): K4 backward launches {got}, want {want}")
 
     # (a) one float32 step, kernels vs plain, on the same jittered inputs
     rgb, depth = preprocess_train(rgb_u8, depth_raw, input_size,
@@ -588,6 +791,8 @@ def phase_train(name: str) -> dict:
     check(not bad, f"subtree gradient rel-L2 above {TOL_GRAD_SUBTREE}: {bad}")
     want_a = [k for k in PATH_KERNELS[path] if not k.endswith("_bf16") and k != "preprocess_u8"]
     check(all(launches_a[k] > 0 for k in want_a), f"a kernel was not launched: {launches_a}")
+    check_k4_backward(launches_a, 1, "a")
+    si_bwd_per_step = launches_a["si_loss_sums_backward"]
     make_optimizer(model, cfg32).step()
     del model_plain
 
@@ -606,6 +811,7 @@ def phase_train(name: str) -> dict:
     for k in PATH_KERNELS[path]:
         if k.endswith("_bf16"):
             check(launches_b[k] > 0, f"{k} was not launched by the bf16 steps")
+    check_k4_backward(launches_b, 2, "b")
     check(abs(losses16[0] - loss_k) <= TOL_BF16_LOSS * abs(loss_k),
           f"bf16 step-0 loss {losses16[0]} vs float32 {loss_k}")
 
@@ -624,6 +830,10 @@ def phase_train(name: str) -> dict:
           "train_step_ms": {k: v["step_ms"] for k, v in timing.items()},
           "peak_mib": {k: v["peak_mib"] for k, v in timing.items()},
           "profile": {k: v["profile"] for k, v in timing.items()}})
+    if name == "da2":  # K4's backward kernel left no attention recompute behind
+        for dt, v in timing.items():
+            check(v["profile"].get("softmax_backward", []) == [],
+                  f"da2 {dt} train step ran a softmax backward: {v['profile'].get('softmax_backward')}")
     del model, step, step16
 
     # (c) the training CLI, end to end, on generated data
@@ -660,9 +870,16 @@ def phase_train(name: str) -> dict:
         check(len(arrays) == 4 and all(a.shape == (426, 560) and np.isfinite(a).all()
                                        for a in arrays),
               f"predictions {[(f, a.shape) for f, a in zip(files, arrays)]}")
-        for kernel in PATH_KERNELS[path]:
-            check(launches[kernel] > 0, f"{kernel} was not launched during {path}")
-    return launches
+        # The CLI trains in bf16: K4's float32 backward runs in (a) only.
+        check_path_launches(path, launches, f"during {path}'s CLI",
+                            skip=("flash_attention_backward",))
+        check(launches["si_loss_sums_backward"] % si_bwd_per_step == 0,
+              f"K2 backward launches {launches['si_loss_sums_backward']} are not whole steps")
+        check_k4_backward(launches, launches["si_loss_sums_backward"] // si_bwd_per_step, "c")
+    # The path's launches: (a), (b) and (c), each counted from zero.
+    total = {k: launches_a[k] + launches_b[k] + launches[k] for k in launches}
+    check_path_launches(path, total, f"during {path}")
+    return total
 
 
 def main() -> int:
@@ -685,11 +902,15 @@ def main() -> int:
             ("si_loss_sums", K2_SOURCE, K2_REPLACES),
             ("si_loss_sums_backward", K2_SOURCE, K2_BWD_REPLACES),
             ("flash_attention", K4_SOURCE, K4_REPLACES),
-            ("flash_attention_bf16", K4_SOURCE, K4_REPLACES)):
+            ("flash_attention_bf16", K4_SOURCE, K4_REPLACES),
+            ("flash_attention_backward", K4_SOURCE, K4_REPLACES),
+            ("flash_attention_backward_bf16", K4_SOURCE, K4_REPLACES)):
         launches = {p: counts[name] for p, counts in by_path.items()}
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": sum(launches.values()), "launches_by_path": launches,
                      **kernels[name]})
+        missing = ROW_KEYS - set(rows[-1])
+        check(not missing, f"kernel row {name} lacks {sorted(missing)}")
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -14,13 +14,23 @@ a plain C interface, loaded with ``ctypes``:
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
   precedes it in ``preprocess_eval``;
 - ``flash_attention`` (csrc/flash_attention.cu) replaces ``flash_attention``
-  (mde_tpu/ops/flash_attention.py:39-80), in float32 and in bfloat16; every
-  ViT attention of the port runs through it.
+  (mde_tpu/ops/flash_attention.py:39-80), in float32 and in bfloat16, forward
+  and backward; every ViT attention of the port runs through it. At DA-V2-S's
+  training shape (4, 1345, 6, 64) the forward is 11.1 GFLOP and the backward
+  27.8 GFLOP (2.5x, the recompute of S included) against 16.5 MB of q/k/v/o in
+  bf16, about 670 FLOP a byte: compute-bound. So every product runs on the
+  tensor cores (``mma.sync``: bf16 m16n8k16, and float32 as 3xTF32 m16n8k8,
+  which keeps float32 accuracy), with the logits, probabilities and their
+  gradients kept in registers and K/V (or q/dO) streamed through shared
+  memory by ``cp.async``. The backward is a kernel too (delta, then dK/dV,
+  then dQ; deterministic, no atomics), fed the forward's log-sum-exp, which
+  the forward writes only when a backward will follow.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
 kernel or raises. Each counts its launches in a ``launches`` attribute
-(``bf16_launches`` and ``backward_launches`` for the other forms).
+(``bf16_launches``, ``backward_launches`` and ``backward_bf16_launches`` for
+the other forms).
 
 The library is built at first use into ``mde_tpu_torch/_build`` (listed in
 .gitignore), named by a hash of the sources and flags, so an edited source is
@@ -46,13 +56,16 @@ from .image import IMAGENET_MEAN, IMAGENET_STD, normalize_imagenet, to_float
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# per source, with -c; -Xptxas -v reports each kernel's registers, spills and
+# shared memory into ``build_log``
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")  # per source, with -c
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib = None
 _lib_lock = threading.Lock()
 build_seconds = None  # wall time of the nvcc run in this process, if one ran
+build_log = {}  # source name -> nvcc's report (ptxas -v), from a build in this process
 
 
 def _nvcc() -> str:
@@ -94,6 +107,7 @@ def build() -> Path:
         errors = []
         for src, proc in zip(sources, procs):
             _, err = proc.communicate()
+            build_log[src.name] = err
             if proc.returncode != 0:
                 errors.append(f"{src.name} ({proc.returncode}):\n{err}")
         if errors:
@@ -129,7 +143,10 @@ def load():
             lib.mde_preprocess_u8_f32.argtypes = [p, p, i, i, i, i, i, f, f, f, f, f, f, p]
             lib.mde_preprocess_u8_f32.restype = i
             for name in ("mde_flash_attention_f32", "mde_flash_attention_bf16"):
-                getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, ll, ll, f, p]
+                getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, f, p]
+                getattr(lib, name).restype = i
+            for name in ("mde_flash_attention_backward_f32", "mde_flash_attention_backward_bf16"):
+                getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, ll, ll, f, p]
                 getattr(lib, name).restype = i
             lib.mde_error_string.argtypes = [i]
             lib.mde_error_string.restype = ctypes.c_char_p
@@ -458,6 +475,35 @@ def flash_attention_plain(q, k, v):
     return out.to(v.dtype)
 
 
+def flash_attention_plain_lse(q, k, v):
+    """``flash_attention_plain`` (the same operations, so the same output)
+    and the rows' log-sum-exp of the scaled logits, (B, H, N) float32: what
+    the kernel's forward writes for its backward."""
+    d = q.shape[-1]
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d**-0.5
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v.float())
+    return out.to(v.dtype), torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout):
+    """Plain version of the backward kernel, its math written out: P from the
+    forward's lse, delta = rowsum(dO o), dS = P (dO v^T - delta), then
+    dq = dS k / sqrt(D), dk = dS^T q / sqrt(D), dv = P^T dO, all in float32
+    and rounded once to the inputs' dtype. ``out`` is the forward's output as
+    stored (bf16 in the bf16 form), as the kernel reads it."""
+    scale = q.shape[-1] ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+        p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+        delta = torch.einsum("bqhd,bqhd->bhq", dof, out.float())
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+        ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _flash_shape(q, k, v):
     """The kernel's conditions on q/k/v other than the device type; returns
     (B, N, H, D)."""
@@ -486,49 +532,93 @@ def _flash_shape(q, k, v):
     return b, n, h, d
 
 
-def _flash_attention_forward(q, k, v):
+def _flash_attention_forward(q, k, v, need_lse: bool):
+    """(out, lse): lse (B, H, N) float32 only when ``need_lse``, else None."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
+        if need_lse:
+            return flash_attention_plain_lse(q, k, v)
+        return flash_attention_plain(q, k, v), None
     _require(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
     b, n, h, d = _flash_shape(q, k, v)
     dtype = q.dtype
     stride_b, stride_n = q.stride()[:2]
     out = torch.empty((b, n, h, d), dtype=dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if need_lse else None
     lib = load()
     bf16 = dtype == torch.bfloat16
     fn = lib.mde_flash_attention_bf16 if bf16 else lib.mde_flash_attention_f32
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, h, d,
-             stride_b, stride_n, d**-0.5, _stream(q))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if need_lse else None, b, n, h, d, stride_b, stride_n, d**-0.5,
+             _stream(q))
     _check(lib, err, "flash_attention")
     if bf16:
         flash_attention.bf16_launches += 1
     else:
         flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _flash_attention_backward(q, k, v, out, lse, dout):
+    """(dq, dk, dv), each (B, N, H, D) in q's dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, dout)
+    _require(q.device.type == "cuda", f"flash_attention backward: unsupported device {q.device}")
+    b, n, h, d = _flash_shape(q, k, v)
+    dtype = q.dtype
+    dout = dout.to(dtype).contiguous()
+    _require(all(x.device == q.device for x in (out, lse, dout)),
+             "flash_attention backward: all inputs must be on one device")
+    _require(tuple(out.shape) == tuple(dout.shape) == (b, n, h, d) and out.dtype == dtype
+             and out.is_contiguous(),
+             f"flash_attention backward: out and dout must be contiguous {(b, n, h, d)} {dtype}")
+    _require(tuple(lse.shape) == (b, h, n) and lse.dtype == torch.float32 and lse.is_contiguous(),
+             f"flash_attention backward: lse must be a contiguous float32 {(b, h, n)}")
+    _require(out.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0,
+             "flash_attention backward: out and dout must start 16-byte aligned")
+    stride_b, stride_n = q.stride()[:2]
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=dtype, device=q.device) for _ in range(3))
+    lib = load()
+    bf16 = dtype == torch.bfloat16
+    fn = lib.mde_flash_attention_backward_bf16 if bf16 else lib.mde_flash_attention_backward_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, n, h, d, stride_b, stride_n, d**-0.5, _stream(q))
+    _check(lib, err, "flash_attention backward")
+    if bf16:
+        flash_attention.backward_bf16_launches += 1
+    else:
+        flash_attention.backward_launches += 1
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward; the backward recomputes through the plain version and
-    saves no probabilities (the JAX kernel has no VJP of its own)."""
+    """Kernel forward and kernel backward. The forward writes the rows'
+    log-sum-exp only when a backward will follow (``need_grad``: grad mode on
+    and an input that requires grad, which ``forward`` cannot see: it runs
+    under no_grad, and ``ctx.needs_input_grad`` is set under no_grad too);
+    the backward recomputes the probabilities from it and saves none."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _flash_attention_forward(q, k, v)
+    def forward(ctx, q, k, v, need_grad):
+        out, lse = _flash_attention_forward(q, k, v, need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = flash_attention_plain(*leaves)
-            return torch.autograd.grad(out, leaves, grad.to(v.dtype))
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_attention_backward(q, k, v, out, lse, grad), None)
 
 
 def flash_attention(q, k, v):
     """Full attention, (B, N, H, D) -> (B, N, H, D); see the plain version."""
-    return _FlashAttention.apply(q, k, v)
+    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, need_grad)
 
 
 flash_attention.launches = 0  # float32 kernel
 flash_attention.bf16_launches = 0
+flash_attention.backward_launches = 0  # float32 backward kernel
+flash_attention.backward_bf16_launches = 0

@@ -1,7 +1,8 @@
 """K4 (``ops.kernels.flash_attention``) on the CPU: its plain version against
 the JAX package's Pallas kernel (interpret mode) and its einsum reference,
-its recompute gradient against ``jax.vjp``, its bf16 form, and the wrapper's
-checks.
+the plain versions of what the kernels write for and compute in the backward
+(the log-sum-exp, and the backward from it) against ``jax.nn.logsumexp`` and
+``jax.vjp``, the Function's gradient, its bf16 form, and the wrapper's checks.
 
 Tolerances: forward rtol 1e-4, atol 1e-5, the bound of the JAX package's own
 flash test (tests/test_pallas_kernels.py:159): float32 logits and softmax in
@@ -45,17 +46,104 @@ def test_plain_matches_jax_kernel_and_reference(case):
 
 
 @pytest.mark.parametrize("case", sorted(SHAPES))
-def test_gradient_matches_jax_vjp(case):
-    """Autograd through the wrapper (plain forward and the Function's
-    recompute backward on the CPU) against ``jax.vjp`` of the reference."""
+def test_gradient_matches_jax_vjp(case, monkeypatch):
+    """Autograd through the wrapper (plain forward with the log-sum-exp, and
+    the Function's backward through ``flash_attention_backward_plain``, the
+    backward kernel's math, on the CPU) against ``jax.vjp`` of the reference."""
+    calls = []
+    real = K.flash_attention_backward_plain
+    monkeypatch.setattr(K, "flash_attention_backward_plain",
+                        lambda *a: calls.append(1) or real(*a))
     q, k, v = _qkv(1, SHAPES[case])
     cot = np.random.default_rng(2).standard_normal(SHAPES[case]).astype(np.float32)
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     K.flash_attention(*leaves).backward(torch.from_numpy(cot))
+    assert calls == [1]
     _, vjp = jax.vjp(attention_reference, *map(jnp.asarray, (q, k, v)))
     for name, t, j in zip("qkv", leaves, vjp(jnp.asarray(cot))):
         rel = _rel_l2(t.grad.numpy(), np.asarray(j))
         assert rel <= 1e-5, f"d{name} rel-L2 {rel:.3e}"
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_plain_lse_matches_jax_logsumexp(case):
+    """``flash_attention_plain_lse``: the output of ``flash_attention_plain``
+    bit for bit, and the rows' log-sum-exp of the scaled logits, (B, H, N),
+    against ``jax.nn.logsumexp`` at rtol 1e-5 (float32 sums in another order)."""
+    q, k, v = _qkv(4, SHAPES[case])
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = K.flash_attention_plain_lse(tq, tk, tv)
+    assert torch.equal(out, K.flash_attention_plain(tq, tk, tv))
+    b, n, h, d = SHAPES[case]
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32
+    logits = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k)) * d**-0.5
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, axis=-1)),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_backward_plain_matches_jax_vjp(case):
+    """``flash_attention_backward_plain`` (P from the lse, delta, dS and the
+    three products) against ``jax.vjp`` of the reference: rel-L2 1e-5."""
+    q, k, v = _qkv(5, SHAPES[case])
+    cot = np.random.default_rng(6).standard_normal(SHAPES[case]).astype(np.float32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out, lse = K.flash_attention_plain_lse(tq, tk, tv)
+    got = K.flash_attention_backward_plain(tq, tk, tv, out, lse, torch.from_numpy(cot))
+    _, vjp = jax.vjp(attention_reference, *map(jnp.asarray, (q, k, v)))
+    for name, t, j in zip("qkv", got, vjp(jnp.asarray(cot))):
+        assert t.shape == SHAPES[case] and t.dtype == torch.float32
+        rel = _rel_l2(t.numpy(), np.asarray(j))
+        assert rel <= 1e-5, f"d{name} rel-L2 {rel:.3e}"
+
+
+def test_bf16_backward_plain_is_close_to_autograd():
+    """bf16: the plain backward, fed the bf16-rounded output as the kernel
+    is, against autograd through the float32 math of the same bf16 values:
+    rel-L2 2e-2, the card's bound for the bf16 backward kernel (the rounded
+    output moves delta by bf16's unit roundoff, and each gradient is rounded
+    to bf16 once)."""
+    q, k, v, cot = (torch.from_numpy(x).to(torch.bfloat16)
+                    for x in _qkv(7, SHAPES["ragged"]) + [_qkv(8, SHAPES["ragged"])[0]])
+    out, lse = K.flash_attention_plain_lse(q, k, v)
+    assert out.dtype == torch.bfloat16
+    got = K.flash_attention_backward_plain(q, k, v, out, lse, cot)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(K.flash_attention_plain(*leaves), leaves, cot.float())
+    for name, t, w in zip("qkv", got, want):
+        assert t.dtype == torch.bfloat16
+        rel = ((t.float() - w).norm() / w.norm()).item()
+        assert rel <= 2e-2, f"d{name} rel-L2 {rel:.3e}"
+
+
+def test_wrapper_asks_for_lse_only_under_grad(monkeypatch):
+    """The forward is asked for the log-sum-exp only when a backward can
+    follow: grad mode on and an input that requires grad."""
+    asked = []
+    real = K._flash_attention_forward
+    monkeypatch.setattr(K, "_flash_attention_forward",
+                        lambda q, k, v, need_lse: asked.append(need_lse) or real(q, k, v, need_lse))
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, (1, 20, 2, 64)))
+    K.flash_attention(q, k, v)
+    with torch.no_grad():
+        K.flash_attention(q.requires_grad_(), k, v)
+    with torch.inference_mode():
+        K.flash_attention(q, k, v)
+    out = K.flash_attention(q, k, v)
+    assert asked == [False, False, False, True]
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+
+
+def test_backward_counters_do_not_move_on_cpu():
+    """A CPU forward and backward in both dtypes launch nothing: no count moves."""
+    names = ("launches", "bf16_launches", "backward_launches", "backward_bf16_launches")
+    before = [getattr(K.flash_attention, a) for a in names]
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in _qkv(10, (2, 33, 2, 64))]
+        K.flash_attention(*leaves).float().square().sum().backward()
+        assert all(x.grad is not None and x.grad.dtype == dtype for x in leaves)
+    assert [getattr(K.flash_attention, a) for a in names] == before
 
 
 def test_bf16_plain_is_float32_rounded_once():
