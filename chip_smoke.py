@@ -18,9 +18,14 @@ Phases, each printing JSON lines:
               could take for the same work (``bound_ms``, bytes or operations
               over the H100's published peaks) and one PyTorch call computing
               the same function as a yardstick (``library_ms``; the port never
-              calls it). K1 float32 and bf16, K3, K2 forward and backward, K4
-              float32 and bf16 at six shapes, and K4's backward kernel in both
-              types at four shapes against autograd through the plain version;
+              calls it), and the kernel time per call from the profiler
+              (``profiler_ms``). K1 float32 and bf16, K1's backward kernel in
+              both types at three shapes against autograd through the plain
+              version, K3, K3's train form (the colour jitter inside) at both
+              models' sizes and over all 24 orders, K2 forward and backward,
+              K4 float32 and bf16 at six shapes, and K4's backward kernel in
+              both types at four shapes against autograd through the plain
+              version;
   4. serve    for each model: a checkpoint behind the port's HTTP server,
               answering concurrent .npy requests; replies are checked for shape
               and finiteness, against the plain-version predict step on the card
@@ -28,15 +33,19 @@ Phases, each printing JSON lines:
               been launched while the requests were served; the predict step's
               host time by bucket, at buckets 1 and 8 against the plain
               versions, and its CUDA-event time and profiler split there;
-  5. train    for each model at batch 4: (a) one float32 train step through the
-              kernels against the same step through the plain versions (loss
-              and gradients); (b) two bf16 autocast steps; (d) the train step's
-              CUDA-event times, peak memory and the profiler's split of its
-              device time; (c) the training CLI for 2 epochs on generated data,
-              with its checkpoint and test predictions checked and every
-              kernel of the path launched. DA-V2's train steps must launch K4's
-              backward once per attention block a step, and no softmax
-              backward; the flagship's frozen DINOv2 launches none.
+  5. train    for each model at batch 4: (a) the train preprocessing through
+              its kernel against its plain version on the same draws, then one
+              float32 train step through the kernels against the same step
+              through the plain versions (loss and gradients); (b) two bf16
+              autocast steps; (d) the train step's CUDA-event times, peak
+              memory and the profiler's split of its device time, with its
+              counts of launches and of pageable host-to-card copies; (c) the
+              training CLI for 2 epochs on generated data, with its checkpoint
+              and test predictions checked and every kernel of the path
+              launched. DA-V2's train steps must launch K4's backward once per
+              attention block a step, and no softmax backward; the flagship's
+              frozen DINOv2 launches none, and its steps launch K1's backward
+              once per cross-attention a step and run no plain K1 recompute.
 Then a line with every kernel's numbers and its launches by path (a train
 path's are those of its checks (a), (b) and (c)), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -67,9 +76,11 @@ K1_SOURCE = "mde_tpu_torch/csrc/window_attention.cu"
 K3_SOURCE = "mde_tpu_torch/csrc/preprocess.cu"
 K2_SOURCE = "mde_tpu_torch/csrc/si_loss.cu"
 K1_REPLACES = "mde_tpu/ops/pallas_kernels.py:202"
+K1_BWD_REPLACES = "mde_tpu/ops/window_attention.py:103"  # _pallas_wa_bwd, the Pallas kernel's VJP
 K2_REPLACES = "mde_tpu/ops/pallas_kernels.py:111"
 K2_BWD_REPLACES = "mde_tpu/ops/pallas_kernels.py:130"
 K3_REPLACES = "mde_tpu/ops/pallas_kernels.py:240"
+K3_TRAIN_SOURCE = "mde_tpu_torch/csrc/preprocess_train.cu"
 K4_SOURCE = "mde_tpu_torch/csrc/flash_attention.cu"
 K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
 # (label, (B, N, H, D)): DA-V2-S serving and training at 448x588 (32x42 + 1
@@ -80,7 +91,9 @@ K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
             ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)))
 # K4's backward cases: DA-V2-S training, DA-V2-L, the flagship's branch, ragged.
 K4_BWD_CASES = ("da2s_train", "da2l", "flagship_b1", "ragged")
-TOL_K4_GRAD = 1e-5  # rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
+# rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
+# (K4's backward, and K1's)
+TOL_K4_GRAD = 1e-5
 # bf16: the kernel rounds P and dS to bf16 for their products (2^-9 relative
 # each) and reads the bf16-rounded output for delta; the reference keeps both
 # float32. Each gradient is rounded to bf16 once in both.
@@ -110,7 +123,20 @@ PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 # The keys every row of the final kernels line carries.
 ROW_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "device_ms", "bound_ms", "bound_by", "library_ms"}
+            "device_ms", "profiler_ms", "bound_ms", "bound_by", "library_ms"}
+# The device kernels each wrapper launches, as the profiler names them: a
+# row's ``profiler_ms`` is their device time per call.
+KERNEL_NAMES = {
+    "window_attention": ("window_attention_kernel",),
+    "window_attention_backward": ("window_attention_backward_kernel",),
+    "preprocess_u8": ("preprocess_u8_kernel",),
+    "preprocess_u8_train": ("gray_partial_kernel", "gray_mean_kernel", "preprocess_train_kernel"),
+    "si_loss_sums": ("si_partial_kernel", "si_finish_kernel"),
+    "si_loss_sums_backward": ("si_backward_kernel",),
+    "flash_attention": ("flash_attention_kernel",),
+    "flash_attention_backward": ("flash_attention_delta_kernel", "flash_attention_dkdv_kernel",
+                                 "flash_attention_dq_kernel"),
+}
 
 
 def emit(obj) -> None:
@@ -160,14 +186,48 @@ def bound(flop: float, nbytes: float, rate: str) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def timings(kernel_fn, plain_fn, library_fn, work: dict) -> dict:
+def profiled(fn, n: int = 1):
+    """torch.profiler's key_averages over ``n`` calls of ``fn``, recorded
+    after a warm-up window of ``n`` calls: a window's first device records
+    can be lost while the tracer starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof.key_averages()
+
+
+def profiler_ms(fn, names, n: int = 20):
+    """Device time per call of the kernels whose names contain one of
+    ``names``, from the profiler over ``n`` calls: the kernels' own time,
+    without the host's launch gaps that ``device_ms`` reads below about
+    0.08 ms. A window that recorded none of them (the tracer drops one at
+    times) is taken again, twice at most; then "not measured"."""
+    for _ in range(3):
+        total = sum(e.device_time_total for e in profiled(fn, n)
+                    if str(getattr(e, "device_type", "")).endswith("CUDA")
+                    and any(name in e.key for name in names))
+        if total > 0:
+            return total / 1e3 / n
+    return "not measured"
+
+
+def timings(kernel_fn, plain_fn, library_fn, work: dict, names=None) -> dict:
     """Per-call and back-to-back times of a kernel, its plain version and its
     library yardstick (None where no one PyTorch call computes the function),
-    beside the bound ``work``."""
+    beside the bound ``work``; with ``names``, the kernels' profiler time."""
     out = {"ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
            "device_ms": device_ms(kernel_fn), "plain_device_ms": device_ms(plain_fn),
            "library_ms": None if library_fn is None else device_ms(library_fn), **work}
     out["bound_share"] = out["bound_ms"] / out["device_ms"]
+    if names:
+        out["profiler_ms"] = profiler_ms(kernel_fn, names)
     return out
 
 
@@ -260,6 +320,7 @@ def phase_kernels() -> dict:
     check(bool(torch.isfinite(got).all()), "window_attention bf16: non-finite output")
     check(err <= TOL_K1_BF16, f"window_attention bf16: max-abs {err} > {TOL_K1_BF16}")
     results["window_attention_bf16"] = row
+    results.update(_check_k1_backward(K, g, _window_key_validity))
 
     # K2 at the flagship train step's shape (n = 126 * 2048 a sample), at
     # DA-V2's (n = 128.6 * 2048: a ragged last chunk) and at small ragged
@@ -282,15 +343,160 @@ def phase_kernels() -> dict:
         work = bound(12 * got.numel(), rgb.numel() + 4 * got.numel(), "f32")
         row = dict(max_abs_err=err, **timings(lambda: K.preprocess_u8(rgb, size),
                                               lambda: K.preprocess_u8_plain(rgb, size), None,
-                                              work))
+                                              work, KERNEL_NAMES["preprocess_u8"]))
         emit({"phase": "kernels", "kernel": "preprocess_u8", "case": label,
               "shape": [4, 426, 560, 3], "out": list(got.shape), **row})
         check(tuple(got.shape) == (4, 3, *size), f"preprocess_u8 {label}: shape {tuple(got.shape)}")
         check(err <= TOL_KERNEL, f"preprocess_u8 {label}: max-abs {err} > {TOL_KERNEL}")
         results.setdefault("preprocess_u8", row)
         results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
+    results["preprocess_u8_train"] = _check_k3_train(K, g, rgb)
     results.update(_check_k4(K, g))
     return results
+
+
+def _check_k1_backward(K, g, validity) -> dict:
+    """K1's backward kernel in both types against autograd through
+    ``window_attention_plain`` on the same inputs and cotangent, at the
+    flagship train shape (ragged right-edge windows whose invalid keys
+    interleave with valid ones), a smaller ragged grid and an aligned one
+    with head_dim 8; two calls and the autograd Function give the same bits.
+    Times at the flagship train shape: the kernel, the recompute backward it
+    replaced (plain forward + autograd) and SDPA's backward with a boolean
+    key mask."""
+    cases = (("flagship_train", (4, 20, 256, 32), 8, validity(56, 72, 64, 80, 16)),
+             ("ragged", (2, 6, 256, 32), 8, validity(24, 40, 32, 48, 16)),
+             ("aligned_hd8", (1, 4, 64, 32), 4, validity(16, 16, 16, 16, 8)))
+    out = {}
+    for dtype, name, tol in ((torch.float32, "window_attention_backward", TOL_K4_GRAD),
+                             (torch.bfloat16, "window_attention_backward_bf16", TOL_K4_GRAD_BF16)):
+        rows = {}
+        for label, shape, heads, mask in cases:
+            q, k, v, cot = (torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(4))
+            m = torch.from_numpy(mask).cuda()
+            got = K._window_attention_backward(q, k, v, heads, m, cot)
+            again = K._window_attention_backward(q, k, v, heads, m, cot)
+            plain = K.window_attention_backward_plain(q, k, v, heads, m, cot)
+
+            def recompute():
+                with torch.enable_grad():
+                    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                    return torch.autograd.grad(K.window_attention_plain(*leaves, heads, m),
+                                               leaves, cot)
+
+            want = recompute()
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            via_function = torch.autograd.grad(K.window_attention(*leaves, heads, m), leaves, cot)
+            torch.cuda.synchronize()
+            rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(got, want))
+            plain_rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(plain, want))
+            err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+            same_bits = all(torch.equal(x, y) for x, y in zip(got, again)) and \
+                all(torch.equal(x, y) for x, y in zip(got, via_function))
+            invalid = (m <= 0)[None, :, :, None].expand(shape)
+            masked_max = max(got[1][invalid].abs().max().item(), got[2][invalid].abs().max().item()) \
+                if bool(invalid.any()) else 0.0
+            row = dict(max_abs_err=err, max_rel_l2=rel, plain_max_rel_l2=plain_rel,
+                       same_bits=same_bits, invalid_key_grad_max=masked_max)
+            if label == "flagship_train":
+                b, n, t, c = shape
+                hd = c // heads
+                lib_leaves = [x.detach().clone().reshape(b * n, t, heads, hd).transpose(1, 2)
+                              .requires_grad_() for x in (q, k, v)]
+                lib_mask = (m > 0).repeat(b, 1)[:, None, None, :]
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    *lib_leaves, attn_mask=lib_mask)
+                lib_cot = cot.reshape(b * n, t, heads, hd).transpose(1, 2)
+                # S, dP, dV, dK and dQ: 10 head_dim FLOP a (query, key, head);
+                # q/k/v/dO read, dq/dk/dv written, the mask read. The kernel
+                # computes in float32 on the CUDA cores in both types.
+                flop = 10 * hd * b * n * heads * t * t
+                work = {**bound(flop, 7 * q.numel() * q.element_size() + 4 * m.numel(),
+                                "bf16" if dtype == torch.bfloat16 else "f32"),
+                        "bound_f32_cuda_cores_ms": bound(flop, 0, "f32")["bound_ms"]}
+                row.update(timings(
+                    lambda: K._window_attention_backward(q, k, v, heads, m, cot), recompute,
+                    lambda: torch.autograd.grad(lib_out, lib_leaves, lib_cot, retain_graph=True),
+                    work, KERNEL_NAMES["window_attention_backward"]))
+            rows[label] = row
+            emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape),
+                  "heads": heads, **row})
+            check(all(x.dtype == dtype and x.shape == shape and bool(torch.isfinite(x).all())
+                      for x in got), f"{name} {label}: gradients of the wrong dtype or shape")
+            check(rel <= tol, f"{name} {label}: rel-L2 {rel} > {tol} against autograd")
+            check(plain_rel <= tol, f"{name} {label}: plain version rel-L2 {plain_rel} > {tol}")
+            check(same_bits, f"{name} {label}: two runs, or the autograd Function, gave other bits")
+            check(masked_max == 0.0, f"{name} {label}: an invalid key got dk/dv {masked_max}")
+        out[name] = dict(rows["flagship_train"],
+                         max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                         max_rel_l2=max(r["max_rel_l2"] for r in rows.values()))
+    return out
+
+
+# Float operations a pixel in csrc/preprocess_train.cu, by adjustment
+# (brightness, contrast and saturation: a blend of 4 and a clamp of 2 a
+# channel, saturation's grey 5 more; hue's round trip 43), of the resize (3
+# channels x (four u8 scalings, two row blends and one column blend of 3))
+# and of the normalisation: K3 train's bound.
+JITTER_FLOP = (18, 18, 23, 43)
+RESIZE_FLOP, NORMALIZE_FLOP = 3 * (4 + 3 * 3), 3 * 2
+
+
+def _k3_train_flop(draws: torch.Tensor, pixels: int) -> int:
+    """Operations of one call for these draws: pass 1 resizes and applies
+    the adjustments before contrast in each sample's order, then takes the
+    grey (5 FLOP); pass 3 redoes the resize, applies all four and normalises."""
+    total = 0
+    for order in draws[:, 4:].long().tolist():
+        before = order[:order.index(1)]
+        total += pixels * (RESIZE_FLOP + sum(JITTER_FLOP[o] for o in before) + 5)
+        total += pixels * (RESIZE_FLOP + sum(JITTER_FLOP) + NORMALIZE_FLOP)
+    return total
+
+
+def _check_k3_train(K, g, rgb) -> dict:
+    """K3's train form against its plain version on the same draws, at the
+    flagship's and DA-V2's input sizes, and on a batch of 24 that takes every
+    order of the four adjustments; two calls give the same bits. Draws go in
+    as the train step makes them (on the CPU, copied from pinned memory).
+    Times at the flagship's size, batch 4."""
+    import itertools
+
+    from mde_tpu_torch.ops.image import color_jitter_draws
+
+    def draws_for(b, perms=None):
+        fb, fc, fs, fh, pr = color_jitter_draws(b, 0.2, 0.2, 0.2, 0.1, generator=g)
+        return K.pack_jitter_draws(fb, fc, fs, fh, pr if perms is None else torch.tensor(perms))
+
+    orders = list(itertools.permutations(range(4)))
+    rgb24 = torch.randint(0, 256, (24, *rgb.shape[1:]), dtype=torch.uint8, generator=g).cuda()
+    cases = (("flagship", rgb, (448, 576), draws_for(4)), ("da2", rgb, (448, 588), draws_for(4)),
+             ("all_orders", rgb24, (448, 576), draws_for(24, orders)))
+    row = {}
+    for label, x, size, draws in cases:
+        got = K.preprocess_u8_train(x, draws, size)
+        again = K.preprocess_u8_train(x, draws, size)
+        on_card = draws.cuda()
+        want = K.preprocess_u8_train_plain(x, on_card, size)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same_bits = torch.equal(got, again)
+        case = dict(max_abs_err=err, same_bits=same_bits)
+        if label == "flagship":
+            work = bound(_k3_train_flop(draws, size[0] * size[1]),
+                         x.numel() + 4 * got.numel() + 4 * draws.numel(), "f32")
+            case.update(timings(lambda: K.preprocess_u8_train(x, draws, size),
+                                lambda: K.preprocess_u8_train_plain(x, on_card, size), None,
+                                work, KERNEL_NAMES["preprocess_u8_train"]))
+            row = case
+        emit({"phase": "kernels", "kernel": "preprocess_u8_train", "case": label,
+              "shape": list(x.shape), "out": list(got.shape), **case})
+        check(tuple(got.shape) == (x.shape[0], 3, *size) and bool(torch.isfinite(got).all()),
+              f"preprocess_u8_train {label}: shape {tuple(got.shape)}, or non-finite")
+        check(err <= TOL_KERNEL, f"preprocess_u8_train {label}: max-abs {err} > {TOL_KERNEL}")
+        check(same_bits, f"preprocess_u8_train {label}: two calls gave other bits")
+        row["max_abs_err"] = max(err, row.get("max_abs_err", 0.0))
+    return row
 
 
 def _k4_flop(b: int, n: int, h: int, d: int) -> int:
@@ -330,7 +536,8 @@ def _check_k4(K, g) -> dict:
             work = _k4_bound(_k4_flop(b, n, h, d), 4 * q.numel() * q.element_size(), dtype)
             cases[label] = dict(max_abs_err=err, **timings(
                 lambda: K.flash_attention(q, k, v), lambda: K.flash_attention_plain(q, k, v),
-                lambda: sdpa(tq, tk, tv), work))
+                lambda: sdpa(tq, tk, tv), work,
+                KERNEL_NAMES["flash_attention"] if label == "da2s_train" else None))
             emit({"phase": "kernels", "kernel": name, "case": label, "shape": [b, n, h, d],
                   **cases[label]})
             check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
@@ -386,7 +593,8 @@ def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) ->
     row = dict(max_abs_err=err, max_rel_l2=rel, plain_max_rel_l2=plain_rel, same_bits=same_bits,
                **timings(lambda: K._flash_attention_backward(q, k, v, o, lse, cot), recompute,
                          lambda: torch.autograd.grad(lib_out, leaves, lib_cot, retain_graph=True),
-                         work))
+                         work,
+                         KERNEL_NAMES["flash_attention_backward"] if label == "da2s_train" else None))
     emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape), **row})
     check(all(x.dtype == dtype and x.shape == shape and bool(torch.isfinite(x).all())
               for x in got), f"{name} {label}: gradients of the wrong dtype or shape, or non-finite")
@@ -413,7 +621,7 @@ def _k1_timings(K, q, k, v, heads: int, m, dtype: str) -> dict:
     return timings(lambda: K.window_attention(q, k, v, heads, m),
                    lambda: K.window_attention_plain(q, k, v, heads, m),
                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                       sq, sk, sv, attn_mask=mask), work)
+                       sq, sk, sv, attn_mask=mask), work, KERNEL_NAMES["window_attention"])
 
 
 def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
@@ -434,7 +642,7 @@ def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
     if timed:  # pred and target read once; two logs and four FLOP an element
         fwd.update(timings(lambda: K.si_loss_sums(pred, target),
                            lambda: K.si_loss_sums_plain(pred, target), None,
-                           bound(6 * n, 8 * n + 8 * b, "f32")))
+                           bound(6 * n, 8 * n + 8 * b, "f32"), KERNEL_NAMES["si_loss_sums"]))
     emit({"phase": "kernels", "kernel": "si_loss_sums", "case": label, "shape": list(shape),
           "sums": [r1.tolist(), r2.tolist()], **fwd})
     check(rel <= TOL_K2, f"si_loss_sums {label}: relative error {rel} > {TOL_K2}")
@@ -456,7 +664,7 @@ def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
         bwd.update(timings(
             lambda: K._si_loss_sums_backward(pred, target, g1, g2, 1e-6, False),
             lambda: K.si_loss_sums_backward_plain(pred, target, g1, g2, 1e-6, False), None,
-            bound(8 * n, 12 * n + 8 * b, "f32")))
+            bound(8 * n, 12 * n + 8 * b, "f32"), KERNEL_NAMES["si_loss_sums_backward"]))
     emit({"phase": "kernels", "kernel": "si_loss_sums_backward", "case": label,
           "shape": list(shape), "dtarget": need_target, **bwd})
     check(rel <= TOL_K2, f"si_loss_sums backward {label}: max-abs over max-abs {rel} > {TOL_K2}")
@@ -474,7 +682,10 @@ def _counters():
 
     return {"window_attention": (K.window_attention, "launches"),
             "window_attention_bf16": (K.window_attention, "bf16_launches"),
+            "window_attention_backward": (K.window_attention, "backward_launches"),
+            "window_attention_backward_bf16": (K.window_attention, "bf16_backward_launches"),
             "preprocess_u8": (K.preprocess_u8, "launches"),
+            "preprocess_u8_train": (K.preprocess_u8_train, "launches"),
             "si_loss_sums": (K.si_loss_sums, "launches"),
             "si_loss_sums_backward": (K.si_loss_sums, "backward_launches"),
             "flash_attention": (K.flash_attention, "launches"),
@@ -496,12 +707,13 @@ def read_counts() -> dict:
 # DINOv2 is frozen and runs under no_grad, so no K4 backward).
 PATH_KERNELS = {
     "flagship_serve": ("window_attention", "preprocess_u8", "flash_attention"),
-    "flagship_train": ("window_attention", "window_attention_bf16", "preprocess_u8",
+    "flagship_train": ("window_attention", "window_attention_bf16", "window_attention_backward",
+                       "window_attention_backward_bf16", "preprocess_u8", "preprocess_u8_train",
                        "si_loss_sums", "si_loss_sums_backward", "flash_attention",
                        "flash_attention_bf16"),
     "da2_serve": ("preprocess_u8", "flash_attention"),
-    "da2_train": ("preprocess_u8", "si_loss_sums", "si_loss_sums_backward", "flash_attention",
-                  "flash_attention_bf16", "flash_attention_backward",
+    "da2_train": ("preprocess_u8", "preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward",
+                  "flash_attention", "flash_attention_bf16", "flash_attention_backward",
                   "flash_attention_backward_bf16"),
 }
 
@@ -698,23 +910,15 @@ def _profile_step(step, step_ms: float) -> dict:
     """One step under torch.profiler: the kernels' device time against the
     step's CUDA-event time (``step_ms``, measured without the profiler, whose
     own overhead stretches the traced step), and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+    events = profiled(step)
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in events
             if e.device_time_total > 0 and str(getattr(e, "device_type", "")).endswith("CUDA")
             and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
     if not rows:
         return {"device_ms": "not measured"}
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    ours = {o: [0.0, 0] for o in ("window_attention_kernel", "si_partial_kernel",
-                                  "si_finish_kernel", "si_backward_kernel",
-                                  "flash_attention_kernel", "flash_attention_delta_kernel",
-                                  "flash_attention_dkdv_kernel", "flash_attention_dq_kernel")}
+    ours = {o: [0.0, 0] for names in KERNEL_NAMES.values() for o in names}
     for name, ms, n in rows:
         for o, acc in ours.items():
             if o in name:
@@ -724,8 +928,15 @@ def _profile_step(step, step_ms: float) -> dict:
     # attention (K1's in the flagship; none on DA-V2's path).
     softmax_bwd = [[name[:90], ms, n] for name, ms, n in rows
                    if "softmax" in name.lower() and "backward" in name.lower()]
+    # K1's plain recompute backward is the only autograd through an amax in
+    # the port (window_attention_plain); its node shows on the host side.
+    plain_k1 = [[e.key[:90], e.count] for e in events if "AmaxBackward" in e.key]
+    copies = [[name, n] for name, _, n in rows if name.startswith("Memcpy")]
     return {"device_ms": device_ms, "busy_share_of_step": device_ms / step_ms,
             "launches": sum(r[2] for r in rows),
+            "kernel_launches": sum(n for name, _, n in rows if not name.startswith("Mem")),
+            "pageable_h2d": sum(n for name, n in copies if "HtoD" in name and "Pageable" in name),
+            "copies": copies, "plain_k1_backward": plain_k1,
             "our_kernels": ours, "softmax_backward": softmax_bwd,
             "our_kernels_share": sum(ms for ms, _ in ours.values()) / device_ms,
             "top": [[name[:90], ms, n] for name, ms, n in rows[:12]]}
@@ -738,6 +949,7 @@ def phase_train(name: str) -> dict:
     from mde_tpu_torch.tools.common import bootstrap_model, live_missing_keys
     from mde_tpu_torch.train.checkpoint import checkpoint_path, load_training_checkpoint
     from mde_tpu_torch.train.checkpoint import TRAINING_KEYS
+    from mde_tpu_torch.models.midas_semantics import CrossAttention
     from mde_tpu_torch.nn.vit import Attention
     from mde_tpu_torch.train.trainer import (forward_backward, make_optimizer, make_train_step,
                                              step_generator)
@@ -757,29 +969,41 @@ def phase_train(name: str) -> dict:
     depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
     out = {"phase": "train", "model": name, "batch": TRAIN_SHAPE[0],
            "input_size": list(input_size)}
-    # K4's backward runs once per attention block a step on DA-V2's trunk;
-    # the flagship's DINOv2 is frozen and launches none.
+    # K4's backward runs once per attention block a step on DA-V2's trunk
+    # (the flagship's DINOv2 is frozen and launches none), K1's once per
+    # cross-attention on the flagship, K3's train form once a step on both.
     n_attn = sum(isinstance(m, Attention) for m in model.modules()) if name == "da2" else 0
+    n_cross = sum(isinstance(m, CrossAttention) for m in model.modules())
 
-    def check_k4_backward(launches: dict, steps: int, what: str) -> None:
+    def check_step_launches(launches: dict, steps: int, what: str) -> None:
         bf16 = what != "a"
-        want = {"flash_attention_backward": 0 if bf16 else n_attn * steps,
-                "flash_attention_backward_bf16": n_attn * steps if bf16 else 0}
+        want = {"preprocess_u8_train": steps}
+        for kernel, per_step in (("flash_attention_backward", n_attn),
+                                 ("window_attention_backward", n_cross)):
+            want[kernel] = 0 if bf16 else per_step * steps
+            want[kernel + "_bf16"] = per_step * steps if bf16 else 0
         got = {k: launches[k] for k in want}
-        check(got == want, f"{path} ({what}): K4 backward launches {got}, want {want}")
+        check(got == want, f"{path} ({what}): launches {got}, want {want}")
 
-    # (a) one float32 step, kernels vs plain, on the same jittered inputs
+    # (a) the train preprocessing, kernel vs plain on the same draws; then one
+    # float32 step, kernels vs plain, each on its own preprocessed inputs
+    reset_counts()
     rgb, depth = preprocess_train(rgb_u8, depth_raw, input_size,
                                   generator=step_generator(SEED, 0, 0))
+    rgb_p, depth_p = preprocess_train(rgb_u8, depth_raw, input_size,
+                                      generator=step_generator(SEED, 0, 0), plain=True)
+    pre_err = (rgb - rgb_p).abs().max().item()
+    check(pre_err <= TOL_KERNEL and torch.equal(depth, depth_p),
+          f"preprocess_train kernel vs plain: max-abs {pre_err} > {TOL_KERNEL}, or depth differs")
     model_plain = copy.deepcopy(model)
-    reset_counts()
     loss_k, _ = forward_backward(model, cfg32, rgb, depth)
     launches_a = read_counts()
-    loss_p, _ = forward_backward(model_plain, cfg32, rgb, depth, plain=True)
+    loss_p, _ = forward_backward(model_plain, cfg32, rgb_p, depth_p, plain=True)
     check(read_counts() == launches_a, "the plain path launched a kernel")
     loss_k, loss_p = loss_k.item(), loss_p.item()
     gaps = _grad_gaps(model, model_plain)
-    out["a_fp32_kernels_vs_plain"] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+    out["a_fp32_kernels_vs_plain"] = {"preprocess_max_abs": pre_err,
+                                      "loss_kernels": loss_k, "loss_plain": loss_p,
                                       "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
                                       "grad_rel_l2": gaps, "launches": launches_a}
     emit({"phase": "train", "model": name, "check": "a", **out["a_fp32_kernels_vs_plain"]})
@@ -791,7 +1015,7 @@ def phase_train(name: str) -> dict:
     check(not bad, f"subtree gradient rel-L2 above {TOL_GRAD_SUBTREE}: {bad}")
     want_a = [k for k in PATH_KERNELS[path] if not k.endswith("_bf16") and k != "preprocess_u8"]
     check(all(launches_a[k] > 0 for k in want_a), f"a kernel was not launched: {launches_a}")
-    check_k4_backward(launches_a, 1, "a")
+    check_step_launches(launches_a, 1, "a")
     si_bwd_per_step = launches_a["si_loss_sums_backward"]
     make_optimizer(model, cfg32).step()
     del model_plain
@@ -811,30 +1035,60 @@ def phase_train(name: str) -> dict:
     for k in PATH_KERNELS[path]:
         if k.endswith("_bf16"):
             check(launches_b[k] > 0, f"{k} was not launched by the bf16 steps")
-    check_k4_backward(launches_b, 2, "b")
+    check_step_launches(launches_b, 2, "b")
     check(abs(losses16[0] - loss_k) <= TOL_BF16_LOSS * abs(loss_k),
           f"bf16 step-0 loss {losses16[0]} vs float32 {loss_k}")
 
-    # (d) the train step's times and peak memory, each dtype in turn
+    # (d) the train step through the kernels and through the plain versions
+    # (plain=True), each dtype in turn: peak memory (one optimizer, two
+    # steps), CUDA-event times in turns plain, kernels, kernels, plain, and
+    # one profiled step each.
     timing = {}
+    modes = ("kernels", "plain")
+    gen = step_generator(SEED, 1, 0)
     for dt, c in (("fp32", cfg32), ("bf16", cfg)):
-        model.load_state_dict(init_state)
-        step = make_train_step(model, c, make_optimizer(model, c))
-        gen = step_generator(SEED, 1, 0)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: step(rgb_u8, depth_raw, gen), reps=8, warmup=2)
-        timing[dt] = {"step_ms": ms, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-                      "profile": _profile_step(lambda: step(rgb_u8, depth_raw, gen), ms)}
+        timing[dt] = {}
+        for mode in modes:
+            model.load_state_dict(init_state)
+            step = make_train_step(model, c, make_optimizer(model, c), plain=mode == "plain")
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                step(rgb_u8, depth_raw, gen)
+            torch.cuda.synchronize()
+            timing[dt][mode] = {"peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+            del step
+        steps = {mode: make_train_step(model, c, make_optimizer(model, c), plain=mode == "plain")
+                 for mode in modes}
+        turns = {mode: [] for mode in modes}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            turns[mode].append(cuda_ms(lambda: steps[mode](rgb_u8, depth_raw, gen), reps=6,
+                                       warmup=2))
+        for mode, step in steps.items():
+            ms = statistics.median(turns[mode])
+            timing[dt][mode].update(step_ms=ms, step_ms_turns=turns[mode], profile=_profile_step(
+                lambda: step(rgb_u8, depth_raw, gen), ms))
+        del steps, step
     out["d_timing"] = timing
-    emit({"phase": "train", "model": name, "check": "d",
-          "train_step_ms": {k: v["step_ms"] for k, v in timing.items()},
-          "peak_mib": {k: v["peak_mib"] for k, v in timing.items()},
-          "profile": {k: v["profile"] for k, v in timing.items()}})
-    if name == "da2":  # K4's backward kernel left no attention recompute behind
-        for dt, v in timing.items():
-            check(v["profile"].get("softmax_backward", []) == [],
-                  f"da2 {dt} train step ran a softmax backward: {v['profile'].get('softmax_backward')}")
-    del model, step, step16
+
+    def by_mode(key):
+        return {dt: {mode: (v[key] if key in v else v["profile"].get(key)) for mode, v in t.items()}
+                for dt, t in timing.items()}
+
+    emit({"phase": "train", "model": name, "check": "d", "train_step_ms": by_mode("step_ms"),
+          "peak_mib": by_mode("peak_mib"), "busy_share": by_mode("busy_share_of_step"),
+          "kernel_launches": by_mode("kernel_launches"), "pageable_h2d": by_mode("pageable_h2d"),
+          "profile": timing})
+    # The backward kernels left no attention recompute behind: no softmax
+    # backward (K4, DA-V2) and no autograd through K1's plain version; the
+    # plain path shows each, so the profile would see one.
+    recompute = "plain_k1_backward" if name == "flagship" else "softmax_backward"
+    for dt, t in timing.items():
+        for key in ("softmax_backward", "plain_k1_backward"):
+            check(t["kernels"]["profile"].get(key, []) == [],
+                  f"{name} {dt} train step ran {key}: {t['kernels']['profile'].get(key)}")
+        check(bool(t["plain"]["profile"].get(recompute)),
+              f"{name} {dt} plain train step: the profile saw no {recompute}")
+    del model, step16
 
     # (c) the training CLI, end to end, on generated data
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -870,12 +1124,12 @@ def phase_train(name: str) -> dict:
         check(len(arrays) == 4 and all(a.shape == (426, 560) and np.isfinite(a).all()
                                        for a in arrays),
               f"predictions {[(f, a.shape) for f, a in zip(files, arrays)]}")
-        # The CLI trains in bf16: K4's float32 backward runs in (a) only.
+        # The CLI trains in bf16: K1's and K4's float32 backwards run in (a) only.
         check_path_launches(path, launches, f"during {path}'s CLI",
-                            skip=("flash_attention_backward",))
+                            skip=("flash_attention_backward", "window_attention_backward"))
         check(launches["si_loss_sums_backward"] % si_bwd_per_step == 0,
               f"K2 backward launches {launches['si_loss_sums_backward']} are not whole steps")
-        check_k4_backward(launches, launches["si_loss_sums_backward"] // si_bwd_per_step, "c")
+        check_step_launches(launches, launches["si_loss_sums_backward"] // si_bwd_per_step, "c")
     # The path's launches: (a), (b) and (c), each counted from zero.
     total = {k: launches_a[k] + launches_b[k] + launches[k] for k in launches}
     check_path_launches(path, total, f"during {path}")
@@ -898,7 +1152,10 @@ def main() -> int:
     for name, source, replaces in (
             ("window_attention", K1_SOURCE, K1_REPLACES),
             ("window_attention_bf16", K1_SOURCE, K1_REPLACES),
+            ("window_attention_backward", K1_SOURCE, K1_BWD_REPLACES),
+            ("window_attention_backward_bf16", K1_SOURCE, K1_BWD_REPLACES),
             ("preprocess_u8", K3_SOURCE, K3_REPLACES),
+            ("preprocess_u8_train", K3_TRAIN_SOURCE, K3_REPLACES),
             ("si_loss_sums", K2_SOURCE, K2_REPLACES),
             ("si_loss_sums_backward", K2_SOURCE, K2_BWD_REPLACES),
             ("flash_attention", K4_SOURCE, K4_REPLACES),

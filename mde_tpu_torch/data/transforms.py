@@ -8,10 +8,10 @@ mde_tpu/data/transforms.py).
   that kernel's plain version.
 - ``preprocess_train`` = the default train path, Resize + ColorJitter(0.2,
   0.2, 0.2, 0.1) + ToTensor + Normalize (src/main.py:578-583), then the depth
-  resize. It runs as plain PyTorch on either device: the jitter sits between
-  the resize and the normalisation that ``preprocess_u8`` fuses, so that
-  kernel is not on the train step (a fused form with the jitter inside is a
-  ROADMAP follow-up).
+  resize. On a CUDA tensor the image part is one kernel with the jitter
+  inside (``ops.kernels.preprocess_u8_train``), fed the jitter's draws from
+  the step's generator; on the CPU, or with ``plain=True``, the same
+  operations in plain PyTorch from the same draws.
 
 The PairAug path (``augmentation: True``) is not ported yet.
 """
@@ -22,8 +22,9 @@ import functools
 
 import torch
 
-from ..ops.image import color_jitter, normalize_imagenet, to_float
-from ..ops.kernels import preprocess_u8, resize_half_pixel
+from ..ops.image import color_jitter, color_jitter_draws, normalize_imagenet, to_float
+from ..ops.kernels import (pack_jitter_draws, preprocess_u8, preprocess_u8_train,
+                           resize_half_pixel)
 from ..ops.resize import resize_bilinear
 
 
@@ -46,15 +47,27 @@ def preprocess_eval(rgb_u8: torch.Tensor, depth: torch.Tensor | None = None,
     return rgb, resize_depth(depth, input_size)
 
 
+JITTER = (0.2, 0.2, 0.2, 0.1)  # brightness, contrast, saturation, hue (src/main.py:580)
+
+
 def preprocess_train(rgb_u8: torch.Tensor, depth: torch.Tensor, input_size=(448, 576),
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, plain: bool = False):
     """(B, H, W, 3) uint8 and (B, H, W) depth -> (rgb (B, 3, *input_size)
     float32, depth (B, *input_size)): half-pixel resize with the JAX rounding,
-    colour jitter with draws from ``generator``, ImageNet normalisation."""
+    colour jitter with draws from ``generator``, ImageNet normalisation.
+
+    Both branches make the same generator calls and compute the same
+    function: the kernel's plain version (``preprocess_u8_train_plain``) is
+    this plain branch with the draws made first.
+    """
     size = _size(input_size)
-    rgb = resize_half_pixel(to_float(rgb_u8).permute(0, 3, 1, 2), size)
-    rgb = color_jitter(rgb, 0.2, 0.2, 0.2, 0.1, generator=generator)
-    return normalize_imagenet(rgb).contiguous(), resize_depth(depth, size)
+    if plain or rgb_u8.device.type == "cpu":
+        rgb = resize_half_pixel(to_float(rgb_u8).permute(0, 3, 1, 2), size)
+        rgb = normalize_imagenet(color_jitter(rgb, *JITTER, generator=generator)).contiguous()
+    else:
+        draws = color_jitter_draws(rgb_u8.shape[0], *JITTER, generator=generator)
+        rgb = preprocess_u8_train(rgb_u8, pack_jitter_draws(*draws), size)
+    return rgb, resize_depth(depth, size)
 
 
 def make_train_pipeline(augmentation: bool, input_size):

@@ -6,8 +6,10 @@ normalises along dim 1 and the colour jitter works on (B, 3, H, W) batches in
 torchvision's factor distributions, PIL ImageEnhance blends for brightness,
 contrast and saturation, torchvision's tensor hue formula, and a per-sample
 random order of the four adjustments. Its random draws come from an explicit
-``torch.Generator`` on the CPU; ``color_jitter_apply`` takes them as
-arguments, so a test can hand it the JAX package's draws. The paired
+``torch.Generator`` on the CPU (``color_jitter_draws``);
+``color_jitter_apply`` takes them as arguments, so a test can hand it the
+JAX package's draws, and the train step hands the same draws to the fused
+kernel (``ops.kernels.preprocess_u8_train``). The paired
 augmentations (PairAug) are not ported yet (ROADMAP, the augmentation path).
 """
 
@@ -132,17 +134,17 @@ def color_jitter_apply(x, fb, fc, fs, fh, perms) -> torch.Tensor:
     return out
 
 
-def color_jitter(x, brightness: float = 0.2, contrast: float = 0.2, saturation: float = 0.2,
-                 hue: float = 0.1, generator: torch.Generator | None = None) -> torch.Tensor:
-    """Per-sample torchvision-style colour jitter on an NCHW batch.
+def color_jitter_draws(b: int, brightness: float = 0.2, contrast: float = 0.2,
+                       saturation: float = 0.2, hue: float = 0.1,
+                       generator: torch.Generator | None = None):
+    """The jitter's random draws for a batch of ``b``: (fb, fc, fs, fh), each
+    (B,) float32, and perms (B, 4) int64, from ``generator`` (a CPU
+    ``torch.Generator``): four ``torch.rand(b)`` and then ``b`` calls to
+    ``randperm(4)``, in that order.
 
-    Factors ~ U[max(0, 1 - a), 1 + a] (hue ~ U[-h, h]) and one random order of
-    the four adjustments a sample, all drawn from ``generator`` (a CPU
-    ``torch.Generator``). The reference's default path uses (0.2, 0.2, 0.2,
-    0.1) (src/main.py:580).
+    Factors ~ U[max(0, 1 - a), 1 + a] (hue ~ U[-h, h]) and one random order
+    of the four adjustments a sample.
     """
-    b = x.shape[0]
-
     def uniform(lo, hi):
         return torch.rand(b, generator=generator) * (hi - lo) + lo
 
@@ -151,4 +153,14 @@ def color_jitter(x, brightness: float = 0.2, contrast: float = 0.2, saturation: 
     fs = uniform(max(0.0, 1 - saturation), 1 + saturation)
     fh = uniform(-hue, hue)
     perms = torch.stack([torch.randperm(4, generator=generator) for _ in range(b)])
-    return color_jitter_apply(x, fb, fc, fs, fh, perms)
+    return fb, fc, fs, fh, perms
+
+
+def color_jitter(x, brightness: float = 0.2, contrast: float = 0.2, saturation: float = 0.2,
+                 hue: float = 0.1, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-sample torchvision-style colour jitter on an NCHW batch, with the
+    draws of ``color_jitter_draws``. The reference's default path uses
+    (0.2, 0.2, 0.2, 0.1) (src/main.py:580).
+    """
+    draws = color_jitter_draws(x.shape[0], brightness, contrast, saturation, hue, generator)
+    return color_jitter_apply(x, *draws)

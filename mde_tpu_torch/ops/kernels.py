@@ -7,12 +7,18 @@ a plain C interface, loaded with ``ctypes``:
 
 - ``window_attention`` (csrc/window_attention.cu) replaces
   ``window_attention_fused`` (pallas_kernels.py:163-225), in float32 and in
-  bfloat16 (the mixed-precision train step);
+  bfloat16 (the mixed-precision train step), and its gradient
+  ``_pallas_wa_bwd`` (mde_tpu/ops/window_attention.py:103-110) with a
+  backward kernel in both types (one block per window and head: the
+  softmax statistics rerun, then dq by rows and dk/dv by keys; no atomics);
 - ``si_loss_sums`` (csrc/si_loss.cu) replaces ``si_loss_sums``
   (pallas_kernels.py:56-144), forward and backward;
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
-  precedes it in ``preprocess_eval``;
+  precedes it in ``preprocess_eval``; ``preprocess_u8_train``
+  (csrc/preprocess_train.cu) is its train form, with the colour jitter of
+  ``preprocess_train`` (mde_tpu/ops/image.py::color_jitter) between the
+  resize and the normalisation, from draws made on the host;
 - ``flash_attention`` (csrc/flash_attention.cu) replaces ``flash_attention``
   (mde_tpu/ops/flash_attention.py:39-80), in float32 and in bfloat16, forward
   and backward; every ViT attention of the port runs through it. At DA-V2-S's
@@ -29,8 +35,8 @@ a plain C interface, loaded with ``ctypes``:
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
 kernel or raises. Each counts its launches in a ``launches`` attribute
-(``bf16_launches``, ``backward_launches`` and ``backward_bf16_launches`` for
-the other forms).
+(``bf16_launches``, ``backward_launches``, ``bf16_backward_launches`` and
+``backward_bf16_launches`` for the other forms).
 
 The library is built at first use into ``mde_tpu_torch/_build`` (listed in
 .gitignore), named by a hash of the sources and flags, so an edited source is
@@ -51,7 +57,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .image import IMAGENET_MEAN, IMAGENET_STD, normalize_imagenet, to_float
+from .image import (IMAGENET_MEAN, IMAGENET_STD, color_jitter_apply, normalize_imagenet,
+                    to_float)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -135,6 +142,9 @@ def load():
             lib.mde_window_attention_f32.restype = i
             lib.mde_window_attention_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
             lib.mde_window_attention_bf16.restype = i
+            for name in ("mde_window_attention_backward_f32", "mde_window_attention_backward_bf16"):
+                getattr(lib, name).argtypes = [p] * 8 + [i, i, i, i, i, f, p]
+                getattr(lib, name).restype = i
             ll = ctypes.c_longlong
             lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, p, i, ll, f, p]
             lib.mde_si_loss_sums_f32.restype = i
@@ -142,6 +152,8 @@ def load():
             lib.mde_si_loss_backward_f32.restype = i
             lib.mde_preprocess_u8_f32.argtypes = [p, p, i, i, i, i, i, f, f, f, f, f, f, p]
             lib.mde_preprocess_u8_f32.restype = i
+            lib.mde_preprocess_u8_train_f32.argtypes = [p] * 5 + [i] * 5 + [f] * 6 + [p]
+            lib.mde_preprocess_u8_train_f32.restype = i
             for name in ("mde_flash_attention_f32", "mde_flash_attention_bf16"):
                 getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, f, p]
                 getattr(lib, name).restype = i
@@ -199,34 +211,69 @@ def window_attention_plain(qw, kw, vw, num_heads: int, key_valid):
     return out.reshape(b, n, t, c).to(vw.dtype)
 
 
+def window_attention_backward_plain(qw, kw, vw, num_heads: int, key_valid, dout):
+    """Plain version of the backward kernel, its math written out: P from
+    the masked, scaled logits, O = P v, delta = rowsum(dO O), dS = P (dO v^T
+    - delta) on the valid keys only (an invalid key's logit is a constant,
+    so it passes no gradient), then dq = dS k / sqrt(hd), dk = dS^T q /
+    sqrt(hd), dv = P^T dO; float32 einsums with autocast off, each gradient
+    rounded once to the inputs' dtype. ``key_valid`` gets no gradient."""
+    b, n, t, c = qw.shape
+    hd = c // num_heads
+    scale = hd**-0.5
+
+    def split(x):
+        return x.reshape(b, n, t, num_heads, hd).float()
+
+    with torch.autocast(qw.device.type, enabled=False):
+        qf, kf, vf, dof = (split(x) for x in (qw, kw, vw, dout))
+        key_mask = (key_valid > 0)[None, :, None, None, :]
+        logits = torch.einsum("bnqhd,bnkhd->bnhqk", qf, kf) * scale
+        logits = torch.where(key_mask, logits, torch.finfo(torch.float32).min)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+        delta = torch.einsum("bnqhd,bnqhd->bnhq", dof, torch.einsum("bnhqk,bnkhd->bnqhd", p, vf))
+        ds = p * (torch.einsum("bnqhd,bnkhd->bnhqk", dof, vf) - delta[..., None])
+        ds = torch.where(key_mask, ds, 0.0)
+        dq = torch.einsum("bnhqk,bnkhd->bnqhd", ds, kf) * scale
+        dk = torch.einsum("bnhqk,bnqhd->bnkhd", ds, qf) * scale
+        dv = torch.einsum("bnhqk,bnqhd->bnkhd", p, dof)
+    return tuple(x.reshape(b, n, t, c).to(qw.dtype) for x in (dq, dk, dv))
+
+
+def _window_shape(qw, kw, vw, num_heads: int, key_valid, name: str):
+    """The kernels' conditions on q/k/v and the mask other than the device
+    type; returns (B, N, T, C, head_dim)."""
+    _require(all(x.device == qw.device for x in (kw, vw, key_valid)),
+             f"{name}: all inputs must be on one device")
+    _require(qw.dim() == 4 and qw.shape == kw.shape == vw.shape,
+             f"{name}: q/k/v must share a (B, N, T, C) shape, got "
+             f"{tuple(qw.shape)}, {tuple(kw.shape)}, {tuple(vw.shape)}")
+    b, n, t, c = qw.shape
+    _require(qw.dtype in (torch.float32, torch.bfloat16) and kw.dtype == vw.dtype == qw.dtype
+             and key_valid.dtype == torch.float32,
+             f"{name}: the kernel takes q/k/v all float32 or all bfloat16 and "
+             f"float32 key_valid, got {qw.dtype}, {kw.dtype}, {vw.dtype}, {key_valid.dtype}")
+    _require(all(x.is_contiguous() for x in (qw, kw, vw, key_valid)),
+             f"{name}: inputs must be contiguous")
+    _require(tuple(key_valid.shape) == (n, t),
+             f"{name}: key_valid must be {(n, t)}, got {tuple(key_valid.shape)}")
+    _require(0 < t <= 1024, f"{name}: T={t} must be in 1..1024 (one thread a query)")
+    _require(num_heads > 0 and c % num_heads == 0,
+             f"{name}: C={c} not divisible by {num_heads} heads")
+    return b, n, t, c, c // num_heads
+
+
 def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid):
     if qw.device.type == "cpu":
         return window_attention_plain(qw, kw, vw, num_heads, key_valid)
     _require(qw.device.type == "cuda", f"window_attention: unsupported device {qw.device}")
-    _require(all(x.device == qw.device for x in (kw, vw, key_valid)),
-             "window_attention: all inputs must be on one device")
-    _require(qw.dim() == 4 and qw.shape == kw.shape == vw.shape,
-             f"window_attention: q/k/v must share a (B, N, T, C) shape, got "
-             f"{tuple(qw.shape)}, {tuple(kw.shape)}, {tuple(vw.shape)}")
-    b, n, t, c = qw.shape
-    dtype = qw.dtype
-    _require(dtype in (torch.float32, torch.bfloat16) and kw.dtype == vw.dtype == dtype
-             and key_valid.dtype == torch.float32,
-             "window_attention: the kernel takes q/k/v all float32 or all bfloat16 and "
-             f"float32 key_valid, got {qw.dtype}, {kw.dtype}, {vw.dtype}, {key_valid.dtype}")
-    _require(all(x.is_contiguous() for x in (qw, kw, vw, key_valid)),
-             "window_attention: inputs must be contiguous")
-    _require(tuple(key_valid.shape) == (n, t),
-             f"window_attention: key_valid must be {(n, t)}, got {tuple(key_valid.shape)}")
-    _require(0 < t <= 1024, f"window_attention: T={t} must be in 1..1024 (one thread a query)")
-    _require(num_heads > 0 and c % num_heads == 0,
-             f"window_attention: C={c} not divisible by {num_heads} heads")
-    hd = c // num_heads
+    b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, "window_attention")
     _require(hd <= 64 and (2 * t * hd + t) * 4 <= 48 * 1024,
              f"window_attention: head_dim {hd} at T={t} exceeds the kernel's shared memory")
     out = torch.empty_like(vw)
     lib = load()
-    bf16 = dtype == torch.bfloat16
+    bf16 = qw.dtype == torch.bfloat16
     fn = lib.mde_window_attention_bf16 if bf16 else lib.mde_window_attention_f32
     err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
              b, n, t, c, num_heads, hd**-0.5, _stream(qw))
@@ -238,10 +285,38 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid):
     return out
 
 
+def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, dout):
+    """(dq, dk, dv), each (B, N, T, C) in q's dtype."""
+    if qw.device.type == "cpu":
+        return window_attention_backward_plain(qw, kw, vw, num_heads, key_valid, dout)
+    name = "window_attention backward"
+    _require(qw.device.type == "cuda", f"{name}: unsupported device {qw.device}")
+    b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, name)
+    dout = dout.to(qw.dtype).contiguous()
+    _require(dout.device == qw.device and dout.shape == qw.shape,
+             f"{name}: dout must be {tuple(qw.shape)} on {qw.device}")
+    # q, k, v and dO staged as float32, with four float32 rows of T
+    _require(hd <= 64 and (4 * t * hd + 4 * t) * 4 <= 227 * 1024,
+             f"{name}: head_dim {hd} at T={t} exceeds the kernel's shared memory")
+    dq, dk, dv = (torch.empty_like(qw) for _ in range(3))
+    lib = load()
+    bf16 = qw.dtype == torch.bfloat16
+    fn = lib.mde_window_attention_backward_bf16 if bf16 else lib.mde_window_attention_backward_f32
+    err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, t, c, num_heads, hd**-0.5,
+             _stream(qw))
+    _check(lib, err, name)
+    if bf16:
+        window_attention.bf16_backward_launches += 1
+    else:
+        window_attention.backward_launches += 1
+    return dq, dk, dv
+
+
 class _WindowAttention(torch.autograd.Function):
-    """Kernel forward; the backward recomputes through the plain version and
-    saves no probabilities, as ``_pallas_wa_bwd`` does
-    (mde_tpu/ops/window_attention.py:103-110)."""
+    """Kernel forward and kernel backward. As ``_pallas_wa_bwd``
+    (mde_tpu/ops/window_attention.py:103-110) the backward saves no
+    probabilities: it reruns the softmax statistics from q/k/v."""
 
     @staticmethod
     def forward(ctx, qw, kw, vw, num_heads, key_valid):
@@ -252,11 +327,8 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         qw, kw, vw, key_valid = ctx.saved_tensors
-        with torch.enable_grad():
-            q, k, v = (x.detach().requires_grad_() for x in (qw, kw, vw))
-            out = window_attention_plain(q, k, v, ctx.num_heads, key_valid)
-            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad.to(vw.dtype))
-        return dq, dk, dv, None, None
+        return (*_window_attention_backward(qw, kw, vw, ctx.num_heads, key_valid, grad),
+                None, None)
 
 
 def window_attention(qw, kw, vw, num_heads: int, key_valid):
@@ -266,6 +338,8 @@ def window_attention(qw, kw, vw, num_heads: int, key_valid):
 
 window_attention.launches = 0  # float32 kernel
 window_attention.bf16_launches = 0
+window_attention.backward_launches = 0  # float32 backward kernel
+window_attention.bf16_backward_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -424,19 +498,25 @@ def preprocess_u8_plain(rgb_u8: torch.Tensor, size) -> torch.Tensor:
     return normalize_imagenet(resize_half_pixel(x, size)).contiguous()
 
 
+def _u8_shape(rgb_u8: torch.Tensor, size, name: str):
+    """The K3 kernels' conditions on the image batch; returns (B, H, W, OH, OW)."""
+    _require(rgb_u8.device.type == "cuda", f"{name}: unsupported device {rgb_u8.device}")
+    _require(rgb_u8.dtype == torch.uint8, f"{name}: expected uint8, got {rgb_u8.dtype}")
+    _require(rgb_u8.dim() == 4 and rgb_u8.shape[-1] == 3,
+             f"{name}: expected (B, H, W, 3), got {tuple(rgb_u8.shape)}")
+    _require(rgb_u8.is_contiguous(), f"{name}: input must be contiguous")
+    b, h, w, _ = rgb_u8.shape
+    oh, ow = int(size[0]), int(size[1])
+    _require(0 < b <= 65535 and 0 < oh <= 65535 and ow > 0 and oh * ow < 2**31 - 1024,
+             f"{name}: batch {b} or output {oh}x{ow} out of the kernel's grid")
+    return b, h, w, oh, ow
+
+
 def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> (B, 3, size[0], size[1]) normalised float32."""
     if rgb_u8.device.type == "cpu":
         return preprocess_u8_plain(rgb_u8, size)
-    _require(rgb_u8.device.type == "cuda", f"preprocess_u8: unsupported device {rgb_u8.device}")
-    _require(rgb_u8.dtype == torch.uint8, f"preprocess_u8: expected uint8, got {rgb_u8.dtype}")
-    _require(rgb_u8.dim() == 4 and rgb_u8.shape[-1] == 3,
-             f"preprocess_u8: expected (B, H, W, 3), got {tuple(rgb_u8.shape)}")
-    _require(rgb_u8.is_contiguous(), "preprocess_u8: input must be contiguous")
-    b, h, w, _ = rgb_u8.shape
-    oh, ow = int(size[0]), int(size[1])
-    _require(0 < b <= 65535 and 0 < oh <= 65535 and ow > 0,
-             f"preprocess_u8: batch {b} or output {oh}x{ow} out of the kernel's grid")
+    b, h, w, oh, ow = _u8_shape(rgb_u8, size, "preprocess_u8")
     out = torch.empty((b, 3, oh, ow), dtype=torch.float32, device=rgb_u8.device)
     lib = load()
     err = lib.mde_preprocess_u8_f32(rgb_u8.data_ptr(), out.data_ptr(), b, h, w, oh, ow,
@@ -447,6 +527,61 @@ def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
 
 
 preprocess_u8.launches = 0
+
+JITTER_DRAWS = 8  # a sample's row of draws: fb, fc, fs, fh, then its order of the four
+
+
+def pack_jitter_draws(fb, fc, fs, fh, perms) -> torch.Tensor:
+    """The colour jitter's draws (``ops.image.color_jitter_draws``) as the
+    train-form kernel takes them: one (B, 8) float32 row a sample, the
+    brightness, contrast, saturation and hue factors, then its permutation
+    of 0..3 (brightness, contrast, saturation, hue)."""
+    return torch.cat([torch.stack([fb, fc, fs, fh], dim=1).float(),
+                      torch.as_tensor(perms).float()], dim=1)
+
+
+def preprocess_u8_train_plain(rgb_u8: torch.Tensor, draws: torch.Tensor, size) -> torch.Tensor:
+    """Plain version: ``to_float`` -> half-pixel bilinear -> colour jitter
+    with the given draws (``color_jitter_apply``) -> ``normalize_imagenet``.
+
+    (B, H, W, 3) uint8 and (B, 8) draws (``pack_jitter_draws``) ->
+    (B, 3, size[0], size[1]) float32, contiguous NCHW.
+    """
+    x = resize_half_pixel(to_float(rgb_u8).permute(0, 3, 1, 2), size)
+    fb, fc, fs, fh = draws[:, :4].unbind(1)
+    x = color_jitter_apply(x, fb, fc, fs, fh, draws[:, 4:].long())
+    return normalize_imagenet(x).contiguous()
+
+
+def preprocess_u8_train(rgb_u8: torch.Tensor, draws: torch.Tensor, size) -> torch.Tensor:
+    """(B, H, W, 3) uint8 and (B, 8) jitter draws -> (B, 3, size[0], size[1])
+    jittered, normalised float32. Draws on the CPU are copied to the card
+    once, from pinned memory and without blocking the host."""
+    if rgb_u8.device.type == "cpu":
+        return preprocess_u8_train_plain(rgb_u8, draws, size)
+    name = "preprocess_u8_train"
+    b, h, w, oh, ow = _u8_shape(rgb_u8, size, name)
+    _require(tuple(draws.shape) == (b, JITTER_DRAWS) and draws.dtype == torch.float32,
+             f"{name}: draws must be ({b}, {JITTER_DRAWS}) float32, got "
+             f"{tuple(draws.shape)} {draws.dtype}")
+    if draws.device.type == "cpu":
+        draws = draws.contiguous().pin_memory().to(rgb_u8.device, non_blocking=True)
+    _require(draws.device == rgb_u8.device and draws.is_contiguous(),
+             f"{name}: draws must be contiguous, on the CPU or on {rgb_u8.device}")
+    chunks = -(-oh * ow // 1024)  # the first pass's partial grey sums
+    partial = torch.empty((b, chunks), dtype=torch.float32, device=rgb_u8.device)
+    mean = torch.empty(b, dtype=torch.float32, device=rgb_u8.device)
+    out = torch.empty((b, 3, oh, ow), dtype=torch.float32, device=rgb_u8.device)
+    lib = load()
+    err = lib.mde_preprocess_u8_train_f32(rgb_u8.data_ptr(), draws.data_ptr(), partial.data_ptr(),
+                                          mean.data_ptr(), out.data_ptr(), b, h, w, oh, ow,
+                                          *IMAGENET_MEAN, *IMAGENET_STD, _stream(rgb_u8))
+    _check(lib, err, name)
+    preprocess_u8_train.launches += 1
+    return out
+
+
+preprocess_u8_train.launches = 0
 
 
 # ---------------------------------------------------------------------------

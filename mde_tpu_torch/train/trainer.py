@@ -100,7 +100,7 @@ def forward_backward(model, cfg, rgb, depth, dtype=torch.float32, plain: bool = 
     return total.detach(), {k: v.detach() for k, v in parts.items()}
 
 
-def make_train_step(model, cfg, optimizer, accum_steps: int = 1) -> Callable:
+def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = False) -> Callable:
     """step(rgb_u8 (B, H, W, 3) uint8, depth_raw (B, H, W), generator) -> metrics.
 
     One optimizer update a call. ``accum_steps > 1`` splits the batch into
@@ -108,7 +108,9 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1) -> Callable:
     on its own (so BN sees per-microbatch statistics and its running
     statistics ``accum_steps`` momentum updates), with the gradients
     averaged; as mde_tpu's ``make_train_step`` (trainer.py:221-253). The
-    metrics are 0-d device tensors, the microbatch means.
+    metrics are 0-d device tensors, the microbatch means. ``plain=True``
+    runs the kernels' plain versions on any device, in the pipeline and in
+    the forward and backward.
     """
     pipeline = make_train_pipeline(bool(cfg.augmentation), cfg.framework.input_size)
 
@@ -125,8 +127,9 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1) -> Callable:
         metrics = []
         for i in range(accum_steps):
             rgb, depth = pipeline(rgb_u8[i * m:(i + 1) * m], depth_raw[i * m:(i + 1) * m],
-                                  generator=generator)
-            loss, parts = forward_backward(model, cfg, rgb, depth, dtype, scale=1.0 / accum_steps)
+                                  generator=generator, plain=plain)
+            loss, parts = forward_backward(model, cfg, rgb, depth, dtype, plain=plain,
+                                           scale=1.0 / accum_steps)
             metrics.append({"loss": loss, **parts})
         optimizer.step()
         return {k: torch.stack([m_[k] for m_ in metrics]).mean() for k in metrics[0]}

@@ -88,8 +88,9 @@ def test_window_partition_round_trip():
 
 
 def test_window_attention_backward_matches_jax_vjp():
-    """The autograd Function's recompute backward vs ``jax.vjp`` through the
-    Pallas custom VJP, on a ragged grid with a random cotangent."""
+    """The autograd Function's backward (on the CPU, the backward kernel's
+    plain version) vs ``jax.vjp`` through the Pallas custom VJP, on a ragged
+    grid with a random cotangent."""
     rng = np.random.default_rng(2)
     b, h, w, c, heads, ws = 1, 24, 40, 16, 4, 16
     q, k, v = _qkv(rng, (b, h, w, c))
@@ -126,20 +127,40 @@ def test_preprocess_u8_plain_matches_normalize_u8_fused():
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
-    """On a CPU tensor a wrapper runs the plain version and launches nothing;
-    on any other device that is not CUDA it raises rather than falling back."""
-    before = (K.window_attention.launches, K.preprocess_u8.launches)
+    """On a CPU tensor a wrapper runs the plain version and launches nothing
+    (K1's backward and K3's train form too); on any other device that is not
+    CUDA it raises rather than falling back."""
+    def counts():
+        return (K.window_attention.launches, K.window_attention.backward_launches,
+                K.window_attention.bf16_backward_launches, K.preprocess_u8.launches,
+                K.preprocess_u8_train.launches)
+
+    before = counts()
     x = torch.randn(1, 2, 16, 8)
     mask = torch.ones(2, 16)
+    mask[1, ::3] = 0
     assert torch.equal(K.window_attention(x, x, x, 2, mask), K.window_attention_plain(x, x, x, 2, mask))
+    leaves = [torch.randn(1, 2, 16, 8).requires_grad_() for _ in range(3)]
+    cot = torch.randn(1, 2, 16, 8)
+    got = torch.autograd.grad(K.window_attention(*leaves, 2, mask), leaves, cot)
+    want = K.window_attention_backward_plain(*(t.detach() for t in leaves), 2, mask, cot)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
     u8 = torch.zeros(1, 4, 4, 3, dtype=torch.uint8)
     assert torch.equal(K.preprocess_u8(u8, (4, 4)), K.preprocess_u8_plain(u8, (4, 4)))
-    assert (K.window_attention.launches, K.preprocess_u8.launches) == before
+    draws = torch.tensor([[1.1, 0.9, 1.0, 0.05, 3, 1, 0, 2]])
+    assert torch.equal(K.preprocess_u8_train(u8, draws, (4, 4)),
+                       K.preprocess_u8_train_plain(u8, draws, (4, 4)))
+    assert counts() == before
     meta = torch.empty(1, 2, 16, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.window_attention(meta, meta, meta, 2, mask.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        K.preprocess_u8(torch.empty(1, 4, 4, 3, dtype=torch.uint8, device="meta"), (4, 4))
+        K._window_attention_backward(meta, meta, meta, 2, mask.to("meta"), meta)
+    meta_u8 = torch.empty(1, 4, 4, 3, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.preprocess_u8(meta_u8, (4, 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.preprocess_u8_train(meta_u8, draws, (4, 4))
 
 
 def test_build_fails_loudly_without_nvcc(tmp_path, monkeypatch):
