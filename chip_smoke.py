@@ -20,14 +20,19 @@ Phases, each printing JSON lines:
               the same function as a yardstick (``library_ms``; the port never
               calls it), and the kernel time per call from the profiler
               (``profiler_ms``). K1 float32 and bf16, K1's backward kernel in
-              both types at three shapes against autograd through the plain
-              version, K3, K3's train form (the colour jitter inside) at both
-              models' sizes and over all 24 orders, K2 forward and backward,
+              both types at five shapes against autograd through the plain
+              version, fed the forward's row statistics (checked against the
+              plain version's; the forward's output bits the same with and
+              without them, and its time both ways), K3, K3's train form (the
+              colour jitter inside) at both models' sizes and over all 24
+              orders, K2 forward and backward,
               K4 float32 and bf16 at six shapes, and K4's backward kernel in
               both types at four shapes against autograd through the plain
               version;
   4. serve    for each model: a checkpoint behind the port's HTTP server,
-              answering concurrent .npy requests; replies are checked for shape
+              built with both TF32 flags at torch's defaults (the server must
+              turn them off), answering concurrent .npy requests with no K1
+              statistics written; replies are checked for shape
               and finiteness, against the plain-version predict step on the card
               and against the CPU; the path's kernels, and no other, must have
               been launched while the requests were served; the predict step's
@@ -102,6 +107,9 @@ DA2_SETS = ("model.model_type=DepthAnythingV2_vits", "framework.input_size=[448,
 TOL_KERNEL = 1e-5  # kernel vs plain, float32, same inputs
 TOL_K2 = 1e-5  # K2 sums relative; backward max-abs over the plain gradient's max-abs
 TOL_K1_BF16 = 1e-2  # max-abs, about one bf16 ulp at |out| ~ 2 (K1 and K4)
+# K1's row statistics (max, 1/sum) against the plain version's, relative:
+# the same float32 logits, summed in another order.
+TOL_K1_STATS = 1e-5
 # Kernel path vs plain path, one float32 train step: the loss, and the
 # gradients' rel-L2 globally and per top-level module, the noise band of the
 # flagship's gradient (tests/test_train_parity.py:444-457).
@@ -257,8 +265,9 @@ def phase_build() -> None:
 
 
 def _ptxas(log: dict) -> list:
-    """Registers, spills and static shared memory of every kernel, from
-    nvcc's -Xptxas -v report of each source."""
+    """Registers, spills, stack frame (local memory, such as a register
+    array indexed at run time) and static shared memory of every kernel,
+    from nvcc's -Xptxas -v report of each source."""
     rows, cur = [], None
     for src, text in sorted(log.items()):
         for line in text.splitlines():
@@ -266,7 +275,8 @@ def _ptxas(log: dict) -> list:
                 cur = {"source": src, "kernel": line.split("'")[1]}
                 rows.append(cur)
             elif cur is not None:
-                for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                for key, pat in (("stack_frame", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
                                  ("spill_loads", r"(\d+) bytes spill loads"),
                                  ("registers", r"Used (\d+) registers"),
                                  ("static_smem", r"(\d+) bytes smem")):
@@ -357,16 +367,23 @@ def phase_kernels() -> dict:
 
 def _check_k1_backward(K, g, validity) -> dict:
     """K1's backward kernel in both types against autograd through
-    ``window_attention_plain`` on the same inputs and cotangent, at the
-    flagship train shape (ragged right-edge windows whose invalid keys
-    interleave with valid ones), a smaller ragged grid and an aligned one
-    with head_dim 8; two calls and the autograd Function give the same bits.
-    Times at the flagship train shape: the kernel, the recompute backward it
-    replaced (plain forward + autograd) and SDPA's backward with a boolean
-    key mask."""
+    ``window_attention_plain`` on the same inputs and cotangent, fed the
+    kernel forward's output and row statistics, at the flagship train shape
+    (ragged right-edge windows whose invalid keys interleave with valid
+    ones), a smaller ragged grid, an aligned one with head_dim 8, one whose
+    bottom windows hold no valid key (their rows attend evenly to all keys,
+    as in the plain version) and one with head_dim 16 (the runtime-width
+    kernel); two calls and the autograd Function give the same bits. The
+    forward's statistics against ``window_attention_plain_stats``, and its
+    output bits the same with and without them. Times at the flagship train shape: the kernel, the
+    recompute backward it replaced (plain forward + autograd) and SDPA's
+    backward with a boolean key mask; the forward with and without its
+    statistics."""
     cases = (("flagship_train", (4, 20, 256, 32), 8, validity(56, 72, 64, 80, 16)),
              ("ragged", (2, 6, 256, 32), 8, validity(24, 40, 32, 48, 16)),
-             ("aligned_hd8", (1, 4, 64, 32), 4, validity(16, 16, 16, 16, 8)))
+             ("aligned_hd8", (1, 4, 64, 32), 4, validity(16, 16, 16, 16, 8)),
+             ("empty_windows", (1, 4, 64, 32), 8, validity(8, 16, 16, 16, 8)),
+             ("wide_hd16", (1, 4, 64, 64), 4, validity(12, 16, 16, 16, 8)))
     out = {}
     for dtype, name, tol in ((torch.float32, "window_attention_backward", TOL_K4_GRAD),
                              (torch.bfloat16, "window_attention_backward_bf16", TOL_K4_GRAD_BF16)):
@@ -374,9 +391,12 @@ def _check_k1_backward(K, g, validity) -> dict:
         for label, shape, heads, mask in cases:
             q, k, v, cot = (torch.randn(shape, generator=g).to("cuda", dtype) for _ in range(4))
             m = torch.from_numpy(mask).cuda()
-            got = K._window_attention_backward(q, k, v, heads, m, cot)
-            again = K._window_attention_backward(q, k, v, heads, m, cot)
-            plain = K.window_attention_backward_plain(q, k, v, heads, m, cot)
+            o, stats = K._window_attention_forward(q, k, v, heads, m, True)
+            o_nostats, none = K._window_attention_forward(q, k, v, heads, m, False)
+            _, plain_stats = K.window_attention_plain_stats(q, k, v, heads, m)
+            got = K._window_attention_backward(q, k, v, heads, m, o, stats, cot)
+            again = K._window_attention_backward(q, k, v, heads, m, o, stats, cot)
+            plain = K.window_attention_backward_plain(q, k, v, heads, m, o, stats, cot)
 
             def recompute():
                 with torch.enable_grad():
@@ -391,12 +411,19 @@ def _check_k1_backward(K, g, validity) -> dict:
             rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(got, want))
             plain_rel = max(_rel_l2(x.float(), y.float()) for x, y in zip(plain, want))
             err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+            stats_rel = ((stats - plain_stats).abs() / plain_stats.abs()).max().item()
+            same_out = none is None and torch.equal(o, o_nostats)
             same_bits = all(torch.equal(x, y) for x, y in zip(got, again)) and \
                 all(torch.equal(x, y) for x, y in zip(got, via_function))
+            # an invalid key gets dk = 0, and dv = 0 where its window has a
+            # valid key (a window without one spreads p evenly, as the plain
+            # version does)
             invalid = (m <= 0)[None, :, :, None].expand(shape)
-            masked_max = max(got[1][invalid].abs().max().item(), got[2][invalid].abs().max().item()) \
-                if bool(invalid.any()) else 0.0
+            live = (m > 0).any(dim=1)[None, :, None, None].expand(shape)
+            masked = (got[1][invalid], got[2][invalid & live])
+            masked_max = max([x.abs().max().item() for x in masked if x.numel()] or [0.0])
             row = dict(max_abs_err=err, max_rel_l2=rel, plain_max_rel_l2=plain_rel,
+                       stats_max_rel_err=stats_rel, forward_same_bits_with_stats=same_out,
                        same_bits=same_bits, invalid_key_grad_max=masked_max)
             if label == "flagship_train":
                 b, n, t, c = shape
@@ -408,16 +435,24 @@ def _check_k1_backward(K, g, validity) -> dict:
                     *lib_leaves, attn_mask=lib_mask)
                 lib_cot = cot.reshape(b * n, t, heads, hd).transpose(1, 2)
                 # S, dP, dV, dK and dQ: 10 head_dim FLOP a (query, key, head);
-                # q/k/v/dO read, dq/dk/dv written, the mask read. The kernel
-                # computes in float32 on the CUDA cores in both types.
+                # q/k/v/dO/out read, dq/dk/dv written, the mask and the row
+                # statistics read. The kernel computes in float32 on the CUDA
+                # cores in both types.
                 flop = 10 * hd * b * n * heads * t * t
-                work = {**bound(flop, 7 * q.numel() * q.element_size() + 4 * m.numel(),
+                work = {**bound(flop, 8 * q.numel() * q.element_size() + 4 * m.numel()
+                                + 4 * stats.numel(),
                                 "bf16" if dtype == torch.bfloat16 else "f32"),
                         "bound_f32_cuda_cores_ms": bound(flop, 0, "f32")["bound_ms"]}
                 row.update(timings(
-                    lambda: K._window_attention_backward(q, k, v, heads, m, cot), recompute,
+                    lambda: K._window_attention_backward(q, k, v, heads, m, o, stats, cot),
+                    recompute,
                     lambda: torch.autograd.grad(lib_out, lib_leaves, lib_cot, retain_graph=True),
                     work, KERNEL_NAMES["window_attention_backward"]))
+                for key, need in (("forward_profiler_ms", False),
+                                  ("forward_with_stats_profiler_ms", True)):
+                    row[key] = profiler_ms(
+                        lambda: K._window_attention_forward(q, k, v, heads, m, need),
+                        KERNEL_NAMES["window_attention"])
             rows[label] = row
             emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape),
                   "heads": heads, **row})
@@ -425,6 +460,9 @@ def _check_k1_backward(K, g, validity) -> dict:
                       for x in got), f"{name} {label}: gradients of the wrong dtype or shape")
             check(rel <= tol, f"{name} {label}: rel-L2 {rel} > {tol} against autograd")
             check(plain_rel <= tol, f"{name} {label}: plain version rel-L2 {plain_rel} > {tol}")
+            check(stats_rel <= TOL_K1_STATS,
+                  f"{name} {label}: forward statistics {stats_rel} > {TOL_K1_STATS} from plain")
+            check(same_out, f"{name} {label}: the forward's output changed with its statistics")
             check(same_bits, f"{name} {label}: two runs, or the autograd Function, gave other bits")
             check(masked_max == 0.0, f"{name} {label}: an invalid key got dk/dv {masked_max}")
         out[name] = dict(rows["flagship_train"],
@@ -695,8 +733,18 @@ def _counters():
 
 
 def reset_counts() -> None:
+    from mde_tpu_torch.ops import kernels as K
+
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+    K.window_attention.stats_launches = 0
+
+
+def k1_stats_launches() -> int:
+    """K1 forwards that also wrote the row statistics since ``reset_counts``."""
+    from mde_tpu_torch.ops import kernels as K
+
+    return K.window_attention.stats_launches
 
 
 def read_counts() -> dict:
@@ -779,9 +827,15 @@ def phase_serve(name: str) -> dict:
         ckpt = checkpoint_path(tmp, cfg.experiment.model_name)
         save_checkpoint(ckpt, make_model(name, cfg, bias=0.5 if name == "da2" else 0.0))
 
+        # torch's defaults; the server must run float32 with TF32 off
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         service = build_service(cfg, "cuda", max_batch=8, window_ms=5.0, warmup=True)
         start_s = time.perf_counter() - t0
+        tf32 = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+        check(not any(tf32.values()), f"the server left TF32 on: {tf32}")
         server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
         server_thread = threading.Thread(target=server.serve_forever, daemon=True)
         server_thread.start()
@@ -816,7 +870,9 @@ def phase_serve(name: str) -> dict:
                 t.join(timeout=600)
             serve_s = time.perf_counter() - t0
             launches = read_counts()
+            stats_writes = k1_stats_launches()
             check(not errors, f"client errors: {errors}")
+            check(stats_writes == 0, f"{path} wrote K1 statistics {stats_writes} times")
             check(all(not t.is_alive() for t in threads), "a client thread did not finish")
 
             depths, batch_sizes = [], []
@@ -868,7 +924,8 @@ def phase_serve(name: str) -> dict:
                 for k in ("plain", "kernels", "kernels", "plain"):
                     ab[str(b)][k].append(_host_ms(steps[k], batch))
             out = {"phase": "serve", "model": name, "requests": len(replies),
-                   "clients": N_CLIENTS, "start_s": start_s, "serve_s": serve_s,
+                   "clients": N_CLIENTS, "start_s": start_s, "serve_s": serve_s, **tf32,
+                   "k1_stats_writes": stats_writes,
                    "batch_sizes": batch_sizes, "stats": dict(service.batcher.stats),
                    "launches": launches, "served_vs_plain_max_abs": served_err,
                    "served_vs_cpu_max_abs": cpu_err, "depth_mean": float(np.mean(depths)),
@@ -984,6 +1041,11 @@ def phase_train(name: str) -> dict:
             want[kernel + "_bf16"] = per_step * steps if bf16 else 0
         got = {k: launches[k] for k in want}
         check(got == want, f"{path} ({what}): launches {got}, want {want}")
+        # K1's forward writes its statistics once for each backward to come
+        stats_writes = k1_stats_launches()
+        check(stats_writes == n_cross * steps,
+              f"{path} ({what}): K1 statistics written {stats_writes} times, want "
+              f"{n_cross * steps}")
 
     # (a) the train preprocessing, kernel vs plain on the same draws; then one
     # float32 step, kernels vs plain, each on its own preprocessed inputs

@@ -9,8 +9,10 @@ a plain C interface, loaded with ``ctypes``:
   ``window_attention_fused`` (pallas_kernels.py:163-225), in float32 and in
   bfloat16 (the mixed-precision train step), and its gradient
   ``_pallas_wa_bwd`` (mde_tpu/ops/window_attention.py:103-110) with a
-  backward kernel in both types (one block per window and head: the
-  softmax statistics rerun, then dq by rows and dk/dv by keys; no atomics);
+  backward kernel in both types (one block per window and head, fed the
+  forward's row statistics, which the forward writes only when a backward
+  will follow, and its stored output; each probability formed once in
+  register tiles, sums in a fixed order, no atomics);
 - ``si_loss_sums`` (csrc/si_loss.cu) replaces ``si_loss_sums``
   (pallas_kernels.py:56-144), forward and backward;
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
@@ -36,7 +38,8 @@ Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
 kernel or raises. Each counts its launches in a ``launches`` attribute
 (``bf16_launches``, ``backward_launches``, ``bf16_backward_launches`` and
-``backward_bf16_launches`` for the other forms).
+``backward_bf16_launches`` for the other forms; K1's ``stats_launches``
+counts the forwards that also wrote the row statistics).
 
 The library is built at first use into ``mde_tpu_torch/_build`` (listed in
 .gitignore), named by a hash of the sources and flags, so an edited source is
@@ -138,12 +141,11 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.mde_window_attention_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
-            lib.mde_window_attention_f32.restype = i
-            lib.mde_window_attention_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
-            lib.mde_window_attention_bf16.restype = i
+            for name in ("mde_window_attention_f32", "mde_window_attention_bf16"):
+                getattr(lib, name).argtypes = [p] * 6 + [i, i, i, i, i, f, p]
+                getattr(lib, name).restype = i
             for name in ("mde_window_attention_backward_f32", "mde_window_attention_backward_bf16"):
-                getattr(lib, name).argtypes = [p] * 8 + [i, i, i, i, i, f, p]
+                getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, i, f, p]
                 getattr(lib, name).restype = i
             ll = ctypes.c_longlong
             lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, p, i, ll, f, p]
@@ -195,6 +197,14 @@ def window_attention_plain(qw, kw, vw, num_heads: int, key_valid):
     off so they stay so inside a bf16 region, as in the kernel; the output is
     rounded once to ``vw``'s dtype. It is the reference of both kernel forms.
     """
+    return window_attention_plain_stats(qw, kw, vw, num_heads, key_valid)[0]
+
+
+def window_attention_plain_stats(qw, kw, vw, num_heads: int, key_valid):
+    """``window_attention_plain``'s output and the rows' softmax statistics,
+    (B, N, heads, T, 2) float32: the max of the masked, scaled logits and
+    the reciprocal of the sum of their exponentials, what the kernel's
+    forward writes for its backward."""
     b, n, t, c = qw.shape
     hd = c // num_heads
 
@@ -205,19 +215,23 @@ def window_attention_plain(qw, kw, vw, num_heads: int, key_valid):
         logits = torch.einsum("bnqhd,bnkhd->bnhqk", split(qw), split(kw)) * hd**-0.5
         key_mask = (key_valid > 0)[None, :, None, None, :]
         logits = torch.where(key_mask, logits, torch.finfo(torch.float32).min)
-        attn = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        attn = attn / attn.sum(dim=-1, keepdim=True)
-        out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, split(vw))
-    return out.reshape(b, n, t, c).to(vw.dtype)
+        m = logits.amax(dim=-1, keepdim=True)
+        attn = torch.exp(logits - m)
+        total = attn.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bnhqk,bnkhd->bnqhd", attn / total, split(vw))
+        stats = torch.cat([m, 1.0 / total], dim=-1)
+    return out.reshape(b, n, t, c).to(vw.dtype), stats
 
 
-def window_attention_backward_plain(qw, kw, vw, num_heads: int, key_valid, dout):
-    """Plain version of the backward kernel, its math written out: P from
-    the masked, scaled logits, O = P v, delta = rowsum(dO O), dS = P (dO v^T
-    - delta) on the valid keys only (an invalid key's logit is a constant,
-    so it passes no gradient), then dq = dS k / sqrt(hd), dk = dS^T q /
-    sqrt(hd), dv = P^T dO; float32 einsums with autocast off, each gradient
-    rounded once to the inputs' dtype. ``key_valid`` gets no gradient."""
+def window_attention_backward_plain(qw, kw, vw, num_heads: int, key_valid, out, stats, dout):
+    """Plain version of the backward kernel, its math written out: P =
+    exp(S - m) / l from the masked, scaled logits S and the forward's
+    ``stats`` (m, 1/l), delta = rowsum(dO O) with ``out`` as stored (bf16 in
+    the bf16 form, as the kernel reads it), dS = P (dO v^T - delta) on the
+    valid keys only (an invalid key's logit is a constant, so it passes no
+    gradient), then dq = dS k / sqrt(hd), dk = dS^T q / sqrt(hd), dv = P^T
+    dO; float32 einsums with autocast off, each gradient rounded once to the
+    inputs' dtype. ``key_valid`` gets no gradient."""
     b, n, t, c = qw.shape
     hd = c // num_heads
     scale = hd**-0.5
@@ -226,13 +240,12 @@ def window_attention_backward_plain(qw, kw, vw, num_heads: int, key_valid, dout)
         return x.reshape(b, n, t, num_heads, hd).float()
 
     with torch.autocast(qw.device.type, enabled=False):
-        qf, kf, vf, dof = (split(x) for x in (qw, kw, vw, dout))
+        qf, kf, vf, of, dof = (split(x) for x in (qw, kw, vw, out, dout))
         key_mask = (key_valid > 0)[None, :, None, None, :]
         logits = torch.einsum("bnqhd,bnkhd->bnhqk", qf, kf) * scale
         logits = torch.where(key_mask, logits, torch.finfo(torch.float32).min)
-        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        p = p / p.sum(dim=-1, keepdim=True)
-        delta = torch.einsum("bnqhd,bnqhd->bnhq", dof, torch.einsum("bnhqk,bnkhd->bnqhd", p, vf))
+        p = torch.exp(logits - stats[..., :1]) * stats[..., 1:]
+        delta = torch.einsum("bnqhd,bnqhd->bnhq", dof, of)
         ds = p * (torch.einsum("bnqhd,bnkhd->bnhqk", dof, vf) - delta[..., None])
         ds = torch.where(key_mask, ds, 0.0)
         dq = torch.einsum("bnhqk,bnkhd->bnqhd", ds, kf) * scale
@@ -264,47 +277,65 @@ def _window_shape(qw, kw, vw, num_heads: int, key_valid, name: str):
     return b, n, t, c, c // num_heads
 
 
-def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid):
+def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats: bool):
+    """(out, stats): stats (B, N, heads, T, 2) float32 only when
+    ``need_stats``, else None."""
     if qw.device.type == "cpu":
-        return window_attention_plain(qw, kw, vw, num_heads, key_valid)
+        if need_stats:
+            return window_attention_plain_stats(qw, kw, vw, num_heads, key_valid)
+        return window_attention_plain(qw, kw, vw, num_heads, key_valid), None
     _require(qw.device.type == "cuda", f"window_attention: unsupported device {qw.device}")
     b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, "window_attention")
     _require(hd <= 64 and (2 * t * hd + t) * 4 <= 48 * 1024,
              f"window_attention: head_dim {hd} at T={t} exceeds the kernel's shared memory")
     out = torch.empty_like(vw)
+    stats = (torch.empty((b, n, num_heads, t, 2), dtype=torch.float32, device=qw.device)
+             if need_stats else None)
     lib = load()
     bf16 = qw.dtype == torch.bfloat16
     fn = lib.mde_window_attention_bf16 if bf16 else lib.mde_window_attention_f32
     err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-             b, n, t, c, num_heads, hd**-0.5, _stream(qw))
+             stats.data_ptr() if need_stats else None, b, n, t, c, num_heads, hd**-0.5,
+             _stream(qw))
     _check(lib, err, "window_attention")
     if bf16:
         window_attention.bf16_launches += 1
     else:
         window_attention.launches += 1
-    return out
+    if need_stats:
+        window_attention.stats_launches += 1
+    return out, stats
 
 
-def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, dout):
-    """(dq, dk, dv), each (B, N, T, C) in q's dtype."""
+def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, out, stats, dout):
+    """(dq, dk, dv), each (B, N, T, C) in q's dtype, from the forward's
+    stored ``out`` and its ``stats``."""
     if qw.device.type == "cpu":
-        return window_attention_backward_plain(qw, kw, vw, num_heads, key_valid, dout)
+        return window_attention_backward_plain(qw, kw, vw, num_heads, key_valid, out, stats, dout)
     name = "window_attention backward"
     _require(qw.device.type == "cuda", f"{name}: unsupported device {qw.device}")
     b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, name)
     dout = dout.to(qw.dtype).contiguous()
-    _require(dout.device == qw.device and dout.shape == qw.shape,
-             f"{name}: dout must be {tuple(qw.shape)} on {qw.device}")
-    # q, k, v and dO staged as float32, with four float32 rows of T
-    _require(hd <= 64 and (4 * t * hd + 4 * t) * 4 <= 227 * 1024,
+    _require(all(x.device == qw.device for x in (out, stats, dout)),
+             f"{name}: all inputs must be on one device")
+    _require(out.shape == dout.shape == qw.shape and out.dtype == qw.dtype
+             and out.is_contiguous(),
+             f"{name}: out and dout must be contiguous {tuple(qw.shape)} {qw.dtype}")
+    _require(tuple(stats.shape) == (b, n, num_heads, t, 2) and stats.dtype == torch.float32
+             and stats.is_contiguous(),
+             f"{name}: stats must be a contiguous float32 {(b, n, num_heads, t, 2)}")
+    # head_dim 4 and 8 take the tiled kernel (any T <= 1024); other widths
+    # stage q, k, v and dO as float32 with five float32 a row (m, 1/l,
+    # delta, padding, the mask)
+    _require(hd in (4, 8) or (hd <= 64 and (4 * t * hd + 5 * t) * 4 <= 227 * 1024),
              f"{name}: head_dim {hd} at T={t} exceeds the kernel's shared memory")
     dq, dk, dv = (torch.empty_like(qw) for _ in range(3))
     lib = load()
     bf16 = qw.dtype == torch.bfloat16
     fn = lib.mde_window_attention_backward_bf16 if bf16 else lib.mde_window_attention_backward_f32
-    err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, t, c, num_heads, hd**-0.5,
-             _stream(qw))
+    err = fn(qw.data_ptr(), kw.data_ptr(), vw.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+             stats.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, n, t, c, num_heads, hd**-0.5, _stream(qw))
     _check(lib, err, name)
     if bf16:
         window_attention.bf16_backward_launches += 1
@@ -314,32 +345,38 @@ def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, dout):
 
 
 class _WindowAttention(torch.autograd.Function):
-    """Kernel forward and kernel backward. As ``_pallas_wa_bwd``
-    (mde_tpu/ops/window_attention.py:103-110) the backward saves no
-    probabilities: it reruns the softmax statistics from q/k/v."""
+    """Kernel forward and kernel backward, as ``_FlashAttention``: the
+    forward writes the rows' (max, 1/sum) only when a backward will follow
+    (``need_grad``), and the backward forms the probabilities from them and
+    the stored output; no probability is saved."""
 
     @staticmethod
-    def forward(ctx, qw, kw, vw, num_heads, key_valid):
-        ctx.save_for_backward(qw, kw, vw, key_valid)
-        ctx.num_heads = num_heads
-        return _window_attention_forward(qw, kw, vw, num_heads, key_valid)
+    def forward(ctx, qw, kw, vw, num_heads, key_valid, need_grad):
+        out, stats = _window_attention_forward(qw, kw, vw, num_heads, key_valid, need_grad)
+        if need_grad:
+            ctx.save_for_backward(qw, kw, vw, key_valid, out, stats)
+            ctx.num_heads = num_heads
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        qw, kw, vw, key_valid = ctx.saved_tensors
-        return (*_window_attention_backward(qw, kw, vw, ctx.num_heads, key_valid, grad),
-                None, None)
+        qw, kw, vw, key_valid, out, stats = ctx.saved_tensors
+        return (*_window_attention_backward(qw, kw, vw, ctx.num_heads, key_valid, out, stats,
+                                            grad),
+                None, None, None)
 
 
 def window_attention(qw, kw, vw, num_heads: int, key_valid):
     """Windowed attention, (B, N, T, C) -> (B, N, T, C); see the plain version."""
-    return _WindowAttention.apply(qw, kw, vw, num_heads, key_valid)
+    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (qw, kw, vw))
+    return _WindowAttention.apply(qw, kw, vw, num_heads, key_valid, need_grad)
 
 
 window_attention.launches = 0  # float32 kernel
 window_attention.bf16_launches = 0
 window_attention.backward_launches = 0  # float32 backward kernel
 window_attention.bf16_backward_launches = 0
+window_attention.stats_launches = 0  # forward launches (either type) that wrote the statistics
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,14 @@ from ..models.factory import build_model
 from ..train.checkpoint import load_checkpoint
 
 
+def set_float32_precision() -> None:
+    """Full float32 in cuDNN's convolutions and in matmuls (TF32 off for
+    both): the tools run float32 throughout, like the JAX predict step;
+    torch's default would run float32 convolutions in TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _override(cfg, item: str) -> None:
     """Apply one ``--set dotted.key=value``; the value is read as JSON when it
     parses (numbers, booleans, null, lists), else kept as a string."""

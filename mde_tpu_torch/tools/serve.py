@@ -42,7 +42,8 @@ import torch
 
 from ..train.checkpoint import checkpoint_path
 from ..train.trainer import make_predict_step
-from .common import bootstrap_model, live_missing_keys, parse_config, resolve_paths
+from .common import (bootstrap_model, live_missing_keys, parse_config, resolve_paths,
+                     set_float32_precision)
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _NPY_MAGIC = b"\x93NUMPY"
@@ -397,6 +398,7 @@ def make_handler(service: DepthService):
 def build_service(cfg, device="cuda", max_batch: int = 8, window_ms: float = 5.0,
                   warmup: bool = True, request_timeout_s: float = 300.0,
                   allow_uninitialized: bool = False, pipeline: bool = True) -> DepthService:
+    set_float32_precision()
     paths = resolve_paths(cfg)
     ckpt = checkpoint_path(paths["results_dir"], cfg.experiment.model_name)
     if not os.path.exists(ckpt) and not allow_uninitialized:

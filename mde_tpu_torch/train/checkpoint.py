@@ -9,6 +9,11 @@ prefix stripped (:44-46), and it reports what it did.
 A training checkpoint is the reference's payload dict (src/main.py:206-224):
 ``TRAINING_KEYS``, with the model under ``model_state_dict``, so
 ``load_checkpoint`` and the server read it like a bare state_dict.
+
+mde_tpu writes flax msgpack to the same ``best_model_{name}.pth`` path. A
+torch checkpoint is a zip archive (magic ``PK``), so the loaders read the
+first bytes before ``torch.load``, as mde_tpu/train/checkpoint.py does the
+other way round, and name the converter for anything else.
 """
 
 from __future__ import annotations
@@ -54,9 +59,22 @@ def save_training_checkpoint(path: str, model: nn.Module, optimizer, **fields) -
                   "optimizer_state_dict": optimizer.state_dict(), **fields}, path)
 
 
+def _torch_load(path: str):
+    """``torch.load`` of a zip checkpoint on the CPU; any other file raises
+    ValueError before the unpickler sees it."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head != b"PK":
+        raise ValueError(
+            f"{path} is not a PyTorch zip checkpoint; it looks like an mde_tpu flax (msgpack) "
+            "checkpoint: bring its weights across with "
+            "mde_tpu_torch.train.convert.state_dict_from_flax and save them with save_checkpoint")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_training_checkpoint(path: str) -> dict:
     """The payload ``save_training_checkpoint`` wrote, tensors on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return _torch_load(path)
 
 
 def _unwrap(obj) -> dict:
@@ -98,5 +116,4 @@ def load_state_dict(model: nn.Module, state_dict: dict) -> dict:
 
 def load_checkpoint(model: nn.Module, path: str) -> dict:
     """Load a ``.pth`` into ``model`` in place; returns the merge report."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    return load_state_dict(model, _unwrap(obj))
+    return load_state_dict(model, _unwrap(_torch_load(path)))

@@ -143,7 +143,9 @@ def test_wrappers_take_plain_version_on_cpu_only():
     leaves = [torch.randn(1, 2, 16, 8).requires_grad_() for _ in range(3)]
     cot = torch.randn(1, 2, 16, 8)
     got = torch.autograd.grad(K.window_attention(*leaves, 2, mask), leaves, cot)
-    want = K.window_attention_backward_plain(*(t.detach() for t in leaves), 2, mask, cot)
+    detached = [t.detach() for t in leaves]
+    out, stats = K.window_attention_plain_stats(*detached, 2, mask)
+    want = K.window_attention_backward_plain(*detached, 2, mask, out, stats, cot)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     u8 = torch.zeros(1, 4, 4, 3, dtype=torch.uint8)
     assert torch.equal(K.preprocess_u8(u8, (4, 4)), K.preprocess_u8_plain(u8, (4, 4)))
@@ -155,7 +157,8 @@ def test_wrappers_take_plain_version_on_cpu_only():
     with pytest.raises(ValueError, match="unsupported device"):
         K.window_attention(meta, meta, meta, 2, mask.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        K._window_attention_backward(meta, meta, meta, 2, mask.to("meta"), meta)
+        K._window_attention_backward(meta, meta, meta, 2, mask.to("meta"), meta,
+                                     torch.empty(1, 2, 2, 16, 2, device="meta"), meta)
     meta_u8 = torch.empty(1, 4, 4, 3, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         K.preprocess_u8(meta_u8, (4, 4))

@@ -1,12 +1,16 @@
 """The plain versions of the train step's kernels against the JAX package.
 
 - K1's backward (``window_attention_backward_plain``, the CPU backward of the
-  autograd Function) against ``jax.vjp`` of ``_xla_window_attention`` and of
-  the Pallas custom VJP (``_pallas_window_attention``, interpret mode on the
-  CPU), and against torch autograd through ``window_attention_plain``, on a
-  ragged grid with a random cotangent: rtol 1e-5, atol 1e-5 in float32 (the
-  same float32 math in another summation order; gradients are O(1)). bf16
-  inputs: the float32 result rounded once to bf16.
+  autograd Function, fed the output and row statistics of
+  ``window_attention_plain_stats``) against ``jax.vjp`` of
+  ``_xla_window_attention`` and of the Pallas custom VJP
+  (``_pallas_window_attention``, interpret mode on the CPU), and against
+  torch autograd through ``window_attention_plain``, on a ragged grid with a
+  random cotangent: rtol 1e-5, atol 1e-5 in float32 (the same float32 math
+  in another summation order; gradients are O(1)). bf16 inputs: the float32
+  result from the stored bf16 output, rounded once to bf16. The statistics:
+  ``out`` bit-equal to ``window_attention_plain``, (max, 1/sum) against
+  numpy within 1e-6 relative.
 - K3's train form (``preprocess_u8_train_plain``) against mde_tpu's
   ``preprocess_train`` with the JAX draws injected, once for each of the 24
   orders of the four adjustments: rtol 1e-5, atol 1e-5, the tolerance of
@@ -60,10 +64,16 @@ def _windows(seed: int, dtype=np.float32):
     return wins, mask, cot
 
 
+def _plain_backward(q, k, v, heads, m, cot):
+    """The plain backward fed the plain forward's output and statistics."""
+    out, stats = K.window_attention_plain_stats(q, k, v, heads, m)
+    return K.window_attention_backward_plain(q, k, v, heads, m, out, stats, cot)
+
+
 def test_window_attention_backward_plain_matches_jax_vjp():
     wins, mask, cot = _windows(0)
-    got = K.window_attention_backward_plain(*map(torch.from_numpy, wins), 8,
-                                            torch.from_numpy(mask), torch.from_numpy(cot))
+    got = _plain_backward(*map(torch.from_numpy, wins), 8, torch.from_numpy(mask),
+                          torch.from_numpy(cot))
     jw = [jnp.asarray(x) for x in wins]
     for name, fn in (("xla", _xla_window_attention), ("pallas", _pallas_window_attention)):
         _, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, 8, mask), *jw)
@@ -78,7 +88,7 @@ def test_window_attention_backward_plain_matches_torch_autograd():
     wins, mask, cot = _windows(1)
     q, k, v = (torch.from_numpy(x) for x in wins)
     m = torch.from_numpy(mask)
-    got = K.window_attention_backward_plain(q, k, v, 8, m, torch.from_numpy(cot))
+    got = _plain_backward(q, k, v, 8, m, torch.from_numpy(cot))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     want = torch.autograd.grad(K.window_attention_plain(*leaves, 8, m), leaves,
                                torch.from_numpy(cot))
@@ -90,17 +100,83 @@ def test_window_attention_backward_plain_matches_torch_autograd():
 
 def test_window_attention_backward_bf16_plain_is_float32_rounded_once():
     """bf16 inputs give the float32 gradients of the same (bf16-exact)
-    values, rounded once to bf16, and autocast does not lower the math."""
+    values with delta from the stored bf16 output, as the kernel reads it,
+    rounded once to bf16; autocast does not lower the math."""
     wins, mask, cot = _windows(2)
     q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16) for x in (*wins, cot))
     m = torch.from_numpy(mask)
-    got = K.window_attention_backward_plain(q, k, v, 8, m, g)
-    want = K.window_attention_backward_plain(*(x.float() for x in (q, k, v)), 8, m, g.float())
+    out, stats = K.window_attention_plain_stats(q, k, v, 8, m)
+    assert out.dtype == torch.bfloat16 and stats.dtype == torch.float32
+    got = K.window_attention_backward_plain(q, k, v, 8, m, out, stats, g)
+    want = K.window_attention_backward_plain(*(x.float() for x in (q, k, v)), 8, m,
+                                             out.float(), stats, g.float())
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b.to(torch.bfloat16))
     with torch.autocast("cpu", dtype=torch.bfloat16):
-        again = K.window_attention_backward_plain(q, k, v, 8, m, g)
+        again = K.window_attention_backward_plain(q, k, v, 8, m, out, stats, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_window_attention_plain_stats_matches_numpy(dtype):
+    """``out`` is bit-equal to ``window_attention_plain``; (max, 1/sum) of
+    the masked, scaled logits match numpy (float64) within 1e-6 relative."""
+    wins, mask, _ = _windows(3)
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in wins)
+    m = torch.from_numpy(mask)
+    out, stats = K.window_attention_plain_stats(q, k, v, 8, m)
+    assert torch.equal(out, K.window_attention_plain(q, k, v, 8, m))
+    b, n, t, c = q.shape
+    assert stats.shape == (b, n, 8, t, 2) and stats.dtype == torch.float32 and stats.is_contiguous()
+    qh, kh = (x.float().numpy().astype(np.float64).reshape(b, n, t, 8, c // 8) for x in (q, k))
+    logits = np.einsum("bnqhd,bnkhd->bnhqk", qh, kh) * (c // 8) ** -0.5
+    logits = np.where((mask > 0)[None, :, None, None, :], logits, np.finfo(np.float32).min)
+    want_m = logits.max(-1)
+    want_inv = 1.0 / np.exp(logits - want_m[..., None]).sum(-1)
+    np.testing.assert_allclose(stats[..., 0].numpy(), want_m, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(stats[..., 1].numpy(), want_inv, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_window_attention_function_matches_autograd_through_plain(dtype):
+    """The autograd Function on the CPU (forward with statistics, then the
+    plain backward) against autograd through ``window_attention_plain``:
+    float32 within 1e-5; bf16 within 2e-2 rel-L2, the card's bound for the
+    bf16 backward kernel (delta from the rounded output)."""
+    wins, mask, cot = _windows(4)
+    m = torch.from_numpy(mask)
+    g = torch.from_numpy(cot).to(dtype)
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in wins]
+    got = torch.autograd.grad(K.window_attention(*leaves, 8, m), leaves, g)
+    ref = [x.detach().float().requires_grad_() for x in leaves]
+    want = torch.autograd.grad(K.window_attention_plain(*ref, 8, m), ref, g.float())
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, rtol=TOL, atol=TOL)
+        else:
+            assert ((a.float() - w).norm() / w.norm()).item() <= 2e-2
+
+
+def test_window_attention_asks_for_stats_only_under_grad(monkeypatch):
+    """The forward is asked for the row statistics only when a backward can
+    follow: grad mode on and an input that requires grad."""
+    asked = []
+    real = K._window_attention_forward
+    monkeypatch.setattr(K, "_window_attention_forward",
+                        lambda *a: asked.append(a[-1]) or real(*a))
+    wins, mask, cot = _windows(5)
+    q, k, v = (torch.from_numpy(x) for x in wins)
+    m = torch.from_numpy(mask)
+    K.window_attention(q, k, v, 8, m)
+    with torch.no_grad():
+        K.window_attention(q.requires_grad_(), k, v, 8, m)
+    with torch.inference_mode():
+        K.window_attention(q, k, v, 8, m)
+    out = K.window_attention(q, k, v, 8, m)
+    assert asked == [False, False, False, True]
+    out.backward(torch.from_numpy(cot))
+    assert q.grad is not None and q.grad.shape == q.shape
 
 
 @pytest.fixture(scope="module")
