@@ -16,16 +16,21 @@ Phases, each printing JSON lines:
               median times (``ms``, host launch included), device times over
               50 back-to-back launches (``device_ms``), the least time the card
               could take for the same work (``bound_ms``, bytes or operations
-              over the H100's published peaks) and one PyTorch call computing
-              the same function as a yardstick (``library_ms``; the port never
-              calls it), and the kernel time per call from the profiler
-              (``profiler_ms``). K1 float32 and bf16, K1's backward kernel in
-              both types at five shapes against autograd through the plain
-              version, fed the forward's row statistics (checked against the
-              plain version's; the forward's output bits the same with and
-              without them, and its time both ways), K3, K3's train form (the
-              colour jitter inside) at both models' sizes and over all 24
-              orders, K2 forward and backward,
+              over the H100's published peaks; K1's forward also one
+              exponential a pair at the SFUs' rate and the card's maximum SM
+              clock), ``bound_share`` against the profiler's time where it was
+              measured, one PyTorch call computing the same function as a
+              yardstick (``library_ms``; the port never calls it), and the
+              kernel time per call from the profiler (``profiler_ms``). K1
+              float32 (timed at predict batch 2 and serving bucket 1) and bf16;
+              K1's forward and backward kernels in both types at six shapes:
+              the forward's output against the plain version, the same bits
+              twice and with and without its row statistics, which are checked
+              against the plain version's (-FLT_MAX exactly in a window with no
+              valid key), the forward's time both ways, and the backward fed
+              those statistics against autograd through the plain version; K3,
+              K3's train form (the colour jitter inside) at both models' sizes
+              and over all 24 orders, K2 forward and backward,
               K4 float32 and bf16 at six shapes, and K4's backward kernel in
               both types at four shapes against autograd through the plain
               version;
@@ -127,6 +132,11 @@ N_CLIENTS, N_PER_CLIENT = 6, 4
 # rate of the type they run in.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# Exponentials (MUFU.EX2) an SM issues a clock on Hopper; times the card's SM
+# count and its maximum SM clock (nvidia-smi, read in phase_device) this is
+# the exponential rate that bounds K1's forward.
+SFU_EX2_PER_CLOCK = 16
+SM_CLOCK_HZ = None  # set by phase_device
 
 
 # The keys every row of the final kernels line carries.
@@ -233,21 +243,31 @@ def timings(kernel_fn, plain_fn, library_fn, work: dict, names=None) -> dict:
     out = {"ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
            "device_ms": device_ms(kernel_fn), "plain_device_ms": device_ms(plain_fn),
            "library_ms": None if library_fn is None else device_ms(library_fn), **work}
-    out["bound_share"] = out["bound_ms"] / out["device_ms"]
     if names:
         out["profiler_ms"] = profiler_ms(kernel_fn, names)
+    # against the kernels' own time where the profiler gave it: below about
+    # 0.08 ms device_ms reads the host's launch rate
+    basis = "profiler_ms" if isinstance(out.get("profiler_ms"), float) else "device_ms"
+    out["bound_share"] = out["bound_ms"] / out[basis]
+    out["bound_share_of"] = basis
     return out
 
 
 def phase_device() -> tuple[str, str]:
+    global SM_CLOCK_HZ
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()
+    print(f"clocks.max.sm: {clock}", flush=True)
+    SM_CLOCK_HZ = int(clock.split()[0]) * 1e6  # "1980 MHz"
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "count": torch.cuda.device_count(), "sm_count": torch.cuda.get_device_properties(0)
+          .multi_processor_count, "max_sm_clock_hz": SM_CLOCK_HZ, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
@@ -294,8 +314,10 @@ def phase_kernels() -> dict:
     dev = "cuda"
     results = {}
     k1_cases = [
-        # the flagship: 56x72 grid padded to 64x80, ragged right/bottom windows
+        # the flagship: 56x72 grid padded to 64x80, ragged right/bottom
+        # windows; a predict batch of 2, and serving bucket 1
         ("flagship", (2, 20, 256, 32), 8, _window_key_validity(56, 72, 64, 80, 16)),
+        ("bucket1", (1, 20, 256, 32), 8, _window_key_validity(56, 72, 64, 80, 16)),
         ("aligned", (1, 4, 64, 32), 4, _window_key_validity(16, 16, 16, 16, 8)),
     ]
     for label, shape, heads, mask in k1_cases:
@@ -306,13 +328,19 @@ def phase_kernels() -> dict:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         row = dict(max_abs_err=err)
-        if label == "flagship":  # timed at the serving path's shape
-            row.update(_k1_timings(K, q, k, v, heads, m, "f32"))
+        if label != "aligned":  # timed at the serving path's shapes
+            row.update(_k1_timings(K, q, k, v, heads, m))
         emit({"phase": "kernels", "kernel": "window_attention", "case": label,
               "shape": list(shape), "heads": heads, **row})
         check(bool(torch.isfinite(got).all()), f"window_attention {label}: non-finite output")
         check(err <= TOL_KERNEL, f"window_attention {label}: max-abs {err} > {TOL_KERNEL}")
+        if label == "bucket1":
+            results["window_attention"]["bucket1"] = {
+                key: row[key] for key in ("profiler_ms", "device_ms", "ms", "bound_ms",
+                                          "bound_share")}
         results.setdefault("window_attention", row)
+        results["window_attention"]["max_abs_err"] = max(err, results["window_attention"]
+                                                         ["max_abs_err"])
 
     # K1 bf16 at the train step's flagship shape, against the plain version
     # fed the same bf16 inputs (it computes in float32 and rounds once).
@@ -324,13 +352,16 @@ def phase_kernels() -> dict:
     torch.cuda.synchronize()
     check(got.dtype == torch.bfloat16, f"window_attention bf16: output {got.dtype}")
     err = (got.float() - want.float()).abs().max().item()
-    row = dict(max_abs_err=err, **_k1_timings(K, q, k, v, heads, m, "bf16"))
+    row = dict(max_abs_err=err, **_k1_timings(K, q, k, v, heads, m))
     emit({"phase": "kernels", "kernel": "window_attention_bf16", "case": "flagship_train",
           "shape": list(shape), "heads": heads, **row})
     check(bool(torch.isfinite(got).all()), "window_attention bf16: non-finite output")
     check(err <= TOL_K1_BF16, f"window_attention bf16: max-abs {err} > {TOL_K1_BF16}")
     results["window_attention_bf16"] = row
-    results.update(_check_k1_backward(K, g, _window_key_validity))
+    k1 = _check_k1_backward(K, g, _window_key_validity)
+    for name, err in k1.pop("forward_max_abs_err").items():
+        results[name]["max_abs_err"] = max(err, results[name]["max_abs_err"])
+    results.update(k1)
 
     # K2 at the flagship train step's shape (n = 126 * 2048 a sample), at
     # DA-V2's (n = 128.6 * 2048: a ragged last chunk) and at small ragged
@@ -366,25 +397,34 @@ def phase_kernels() -> dict:
 
 
 def _check_k1_backward(K, g, validity) -> dict:
-    """K1's backward kernel in both types against autograd through
-    ``window_attention_plain`` on the same inputs and cotangent, fed the
-    kernel forward's output and row statistics, at the flagship train shape
-    (ragged right-edge windows whose invalid keys interleave with valid
+    """K1's forward and backward kernels in both types at the flagship train
+    shape (ragged right-edge windows whose invalid keys interleave with valid
     ones), a smaller ragged grid, an aligned one with head_dim 8, one whose
     bottom windows hold no valid key (their rows attend evenly to all keys,
-    as in the plain version) and one with head_dim 16 (the runtime-width
-    kernel); two calls and the autograd Function give the same bits. The
-    forward's statistics against ``window_attention_plain_stats``, and its
-    output bits the same with and without them. Times at the flagship train shape: the kernel, the
-    recompute backward it replaced (plain forward + autograd) and SDPA's
-    backward with a boolean key mask; the forward with and without its
-    statistics."""
+    as in the plain version), one with head_dim 16 (the runtime-width
+    kernels) and one of 10x10 windows (T = 100: ragged in the forward's
+    chunks and slices and in the backward's chunks).
+
+    The forward: its output against ``window_attention_plain``, finite, the
+    same bits on two calls and with and without its statistics; the
+    statistics against ``window_attention_plain_stats``, with the max
+    exactly -FLT_MAX in a window with no valid key. The backward, fed the
+    kernel forward's output and statistics, against autograd through
+    ``window_attention_plain`` on the same inputs and cotangent; two calls
+    and the autograd Function give the same bits. Times at the flagship
+    train shape: the backward, the recompute backward it replaced (plain
+    forward + autograd) and SDPA's backward with a boolean key mask; the
+    forward with and without its statistics. Returns the backward rows and
+    the forward's largest error by kernel row."""
     cases = (("flagship_train", (4, 20, 256, 32), 8, validity(56, 72, 64, 80, 16)),
              ("ragged", (2, 6, 256, 32), 8, validity(24, 40, 32, 48, 16)),
              ("aligned_hd8", (1, 4, 64, 32), 4, validity(16, 16, 16, 16, 8)),
              ("empty_windows", (1, 4, 64, 32), 8, validity(8, 16, 16, 16, 8)),
-             ("wide_hd16", (1, 4, 64, 64), 4, validity(12, 16, 16, 16, 8)))
-    out = {}
+             ("wide_hd16", (1, 4, 64, 64), 4, validity(12, 16, 16, 16, 8)),
+             ("window10", (1, 4, 100, 32), 8, validity(14, 18, 20, 20, 10)))
+    out = {"forward_max_abs_err": {}}
+    fwd_names = {torch.float32: ("window_attention", TOL_KERNEL),
+                 torch.bfloat16: ("window_attention_bf16", TOL_K1_BF16)}
     for dtype, name, tol in ((torch.float32, "window_attention_backward", TOL_K4_GRAD),
                              (torch.bfloat16, "window_attention_backward_bf16", TOL_K4_GRAD_BF16)):
         rows = {}
@@ -393,7 +433,8 @@ def _check_k1_backward(K, g, validity) -> dict:
             m = torch.from_numpy(mask).cuda()
             o, stats = K._window_attention_forward(q, k, v, heads, m, True)
             o_nostats, none = K._window_attention_forward(q, k, v, heads, m, False)
-            _, plain_stats = K.window_attention_plain_stats(q, k, v, heads, m)
+            o_again, _ = K._window_attention_forward(q, k, v, heads, m, False)
+            plain_out, plain_stats = K.window_attention_plain_stats(q, k, v, heads, m)
             got = K._window_attention_backward(q, k, v, heads, m, o, stats, cot)
             again = K._window_attention_backward(q, k, v, heads, m, o, stats, cot)
             plain = K.window_attention_backward_plain(q, k, v, heads, m, o, stats, cot)
@@ -413,6 +454,13 @@ def _check_k1_backward(K, g, validity) -> dict:
             err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
             stats_rel = ((stats - plain_stats).abs() / plain_stats.abs()).max().item()
             same_out = none is None and torch.equal(o, o_nostats)
+            fwd_name, fwd_tol = fwd_names[dtype]
+            fwd_err = (o_nostats.float() - plain_out.float()).abs().max().item()
+            fwd_same_bits = torch.equal(o_nostats, o_again)
+            fwd_finite = bool(torch.isfinite(o_nostats).all())
+            empty = ~(m > 0).any(dim=1)
+            empty_m = stats[:, empty, :, :, 0]
+            empty_m_exact = bool((empty_m == torch.finfo(torch.float32).min).all())
             same_bits = all(torch.equal(x, y) for x, y in zip(got, again)) and \
                 all(torch.equal(x, y) for x, y in zip(got, via_function))
             # an invalid key gets dk = 0, and dv = 0 where its window has a
@@ -424,6 +472,8 @@ def _check_k1_backward(K, g, validity) -> dict:
             masked_max = max([x.abs().max().item() for x in masked if x.numel()] or [0.0])
             row = dict(max_abs_err=err, max_rel_l2=rel, plain_max_rel_l2=plain_rel,
                        stats_max_rel_err=stats_rel, forward_same_bits_with_stats=same_out,
+                       forward_max_abs_err=fwd_err, forward_same_bits=fwd_same_bits,
+                       empty_windows=int(empty.sum()), empty_m_exact=empty_m_exact,
                        same_bits=same_bits, invalid_key_grad_max=masked_max)
             if label == "flagship_train":
                 b, n, t, c = shape
@@ -456,6 +506,14 @@ def _check_k1_backward(K, g, validity) -> dict:
             rows[label] = row
             emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape),
                   "heads": heads, **row})
+            check(o_nostats.dtype == dtype and fwd_finite,
+                  f"{fwd_name} {label}: {o_nostats.dtype} output, or non-finite")
+            check(fwd_err <= fwd_tol, f"{fwd_name} {label}: max-abs {fwd_err} > {fwd_tol}")
+            check(fwd_same_bits, f"{fwd_name} {label}: two calls gave other bits")
+            check(empty_m_exact, f"{fwd_name} {label}: a window with no valid key has max "
+                                 f"{empty_m.unique().tolist()}, not -FLT_MAX")
+            out["forward_max_abs_err"][fwd_name] = max(
+                fwd_err, out["forward_max_abs_err"].get(fwd_name, 0.0))
             check(all(x.dtype == dtype and x.shape == shape and bool(torch.isfinite(x).all())
                       for x in got), f"{name} {label}: gradients of the wrong dtype or shape")
             check(rel <= tol, f"{name} {label}: rel-L2 {rel} > {tol} against autograd")
@@ -642,10 +700,27 @@ def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) ->
     return row
 
 
-def _k1_timings(K, q, k, v, heads: int, m, dtype: str) -> dict:
-    """K1's times, its bound (4 B N heads T^2 hd FLOP against q/k/v/out and
-    the key mask) and its yardstick: scaled_dot_product_attention on the
-    (B N, heads, T, hd) view with a boolean key mask from ``key_valid``."""
+def k1_forward_bound(b: int, n: int, t: int, heads: int, hd: int, elem_bytes: int) -> dict:
+    """K1's forward bound in either element type: it computes in float32 on
+    the CUDA cores, so the larger of q/k/v/out and the key mask at the memory
+    rate, 4 hd FLOP a (query, key, head) pair (logit and weighted sum) at
+    the float32 rate, and one exponential a pair at SFU_EX2_PER_CLOCK an SM
+    a clock at the card's maximum SM clock."""
+    pairs = b * n * heads * t * t
+    bytes_ms = (4 * b * n * t * heads * hd * elem_bytes + 4 * n * t) / HBM_BYTES_PER_S * 1e3
+    flop_ms = 4 * hd * pairs / PEAK_FLOPS["f32"] * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_ms = pairs / (sms * SFU_EX2_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    return {"bound_ms": max(bytes_ms, flop_ms, exp_ms),
+            "bound_by": "bytes" if bytes_ms >= max(flop_ms, exp_ms) else "operations",
+            "bound_bytes_ms": bytes_ms, "bound_f32_cuda_cores_ms": flop_ms,
+            "bound_exp_ms": exp_ms}
+
+
+def _k1_timings(K, q, k, v, heads: int, m) -> dict:
+    """K1's times, its bound (``k1_forward_bound``) and its yardstick:
+    scaled_dot_product_attention on the (B N, heads, T, hd) view with a
+    boolean key mask from ``key_valid``."""
     b, n, t, c = q.shape
     hd = c // heads
 
@@ -654,8 +729,7 @@ def _k1_timings(K, q, k, v, heads: int, m, dtype: str) -> dict:
 
     mask = (m > 0).repeat(b, 1)[:, None, None, :]
     sq, sk, sv = split(q), split(k), split(v)
-    work = bound(4 * b * n * heads * t * t * hd,
-                 4 * q.numel() * q.element_size() + 4 * m.numel(), dtype)
+    work = k1_forward_bound(b, n, t, heads, hd, q.element_size())
     return timings(lambda: K.window_attention(q, k, v, heads, m),
                    lambda: K.window_attention_plain(q, k, v, heads, m),
                    lambda: torch.nn.functional.scaled_dot_product_attention(

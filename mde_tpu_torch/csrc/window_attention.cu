@@ -1,7 +1,7 @@
 // Windowed attention forward over pre-partitioned windows, float32 or bf16.
 //
-// Replaces mde_tpu/ops/pallas_kernels.py::window_attention_fused (its body is
-// _window_attn_kernel). For every (batch, window) and head it computes
+// Replaces mde_tpu/ops/pallas_kernels.py::window_attention_fused (:202; its
+// body is _window_attn_kernel). For every (batch, window) and head it computes
 // softmax(q_h k_h^T * hd^-1/2) over the window's T keys, where a key whose
 // entry in the window's validity row is <= 0 gets the logit -FLT_MAX (the
 // float32 minimum the TPU kernel uses), and multiplies by v_h. q/k/v/out are
@@ -11,25 +11,56 @@
 // preferred_element_type=float32, and the output is rounded to the element
 // type once, at the store.
 //
-// What bounds it on an H100: at the flagship shape (per image N=20 windows of
-// T=256 tokens, C=32, 8 heads of head_dim 4) a call is about 168 MFLOP and
-// 2.6 MB of q/k/v/out per image: microseconds at either roof, so the call is
-// bound by launch and latency, not by the ALUs or HBM.
-//
-// Design: one block per (batch*window, head) and one thread per query row
-// (T <= 1024). The block stages its T x hd slices of K and V and the window's
-// validity row in shared memory as float32 (8 KB + 1 KB at the flagship,
-// either element type); each thread then runs an online softmax (running
-// max and running sum) over the T keys, so the T x T logits are never stored
-// anywhere. A mask row, not a count of
-// valid keys, is needed: right-edge windows have their invalid columns
-// interleaved in token order. head_dim is a template parameter for the
-// widths the models use, with a runtime loop (head_dim <= 64) otherwise.
 // When a backward will follow, the caller passes a stats pointer and each
-// thread also writes its row's final (max, 1 / sum), float32, (B*N, heads,
-// T, 2); with a null pointer nothing more is written. Either way the output
-// is the same. The pair is kept as it is, not as m + log l: a row whose
-// logits are all -FLT_MAX would lose log l in that sum.
+// row's final (max, 1 / sum) is also written, float32, (B*N, heads, T, 2),
+// the max of the masked, scaled logits in natural units (-FLT_MAX exactly
+// in a window with no valid key); with a null pointer nothing more is
+// written, and the output bits are the same either way. The pair is kept as
+// it is, not as m + log l: a row whose logits are all -FLT_MAX would lose
+// log l in that sum. A window with no valid key attends evenly to all T
+// keys, as the plain version does.
+//
+// What bounds the forward on an H100: at the flagship train shape (4, 20,
+// 256, 32) with 8 heads of head_dim 4 there are 41.9 M (query, key, head)
+// pairs, each one exponential and 4 * head_dim FLOP (the logit and the
+// weighted sum): 671 MFLOP, 10 us at the 67 TFLOP/s of the CUDA cores, and
+// 41.9 M exponentials, 10 us at 132 SMs x 16 a clock, against 5.2 MB of
+// q/k/v/out in bf16 (1.6 us). Operations bound it. The tensor cores do not
+// help: at head_dim 4 a bf16 tile is at least half padding, float32 would
+// need 3xTF32, and the exponentials and the 2 * head_dim FMAs a pair stay
+// on the CUDA cores and the SFUs whatever the products run on. So it runs
+// in float32 on the CUDA cores in both element types, and the design aims
+// at the fewest instructions a pair and at filling the card at small
+// batches (160 (window, head) pairs at serving bucket 1).
+//
+// Design (head_dim 4 and 8, window_attention_kernel): one block of S = 4
+// warps per (batch*window, head, tile of 32 R query rows), R = 16 / head_dim
+// (4 rows a thread at head_dim 4, 2 at 8). The block stages the window's
+// keys as k' = k * scale * log2(e), 0 for an invalid key, with a bias a key
+// of 0 (valid), -FLT_MAX (invalid) or -inf (padding past T), v as float32,
+// and its rows' q, all in shared memory (23 KB at the flagship), every
+// global load issued before the first is waited for. A logit in base 2 is
+// then the FMA chain q_i . k'_j started from the bias: no select and no
+// scale a pair. Warp s walks slice s of the keys (T padded to S slices of
+// whole chunks of C = 16); every lane holds R rows in registers, so each
+// broadcast load of k'_j and v_j serves R pairs. In a chunk the R x 16
+// logits stay in registers: their max (one fmax a pair), one rescale of the
+// running sum and accumulator a row and chunk (no branch on the data), then
+// p = ex2(s - m) on the SFU, one a pair, l += p and acc += p v_j: about 13
+// instructions a pair at head_dim 4. A chunk of padding keys gives p = 0; a
+// chunk of invalid keys before any valid one gives p = 1, which the first
+// valid chunk's rescale, 2^(-FLT_MAX - m) = 0, takes back, so no NaN arises
+// and an empty window keeps the even weights. The slices' (m, l, acc) of a
+// row meet in shared memory and are merged in slice order by one thread a
+// row, which writes out (rounded once to the element type) and, when asked,
+// (m ln 2, 1 / l). No atomics: two calls give the same bits. At head_dim 4 a
+// thread takes 128 registers and an SM holds four blocks; small blocks keep
+// one block's prologue behind the others' arithmetic, which measured faster
+// on the H100 than 8 slices (twice the threads a window) or 2 rows a thread
+// (twice the blocks), at serving bucket 1 as at the train batch. Other head
+// widths (<= 64), which no model runs, take window_attention_wide_kernel,
+// the first form: one thread a query row, an online softmax over all T keys
+// with expf.
 //
 // Backward (window_attention_backward_kernel). Replaces _pallas_wa_bwd
 // (mde_tpu/ops/window_attention.py:103), which recomputes the forward
@@ -91,9 +122,25 @@ namespace {
 constexpr int kMaxHeadDim = 64;
 constexpr int kBwdThreads = 128;  // 4 warps a block in the tiled backward
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // keys a lane holds in the tiled backward: 4 at head_dim 4, 2 at 8
 template <int HD>
 constexpr int kLaneKeys = 16 / HD;
+// The tiled forward: S key slices a block (one warp each), C keys a chunk,
+// R query rows a thread (4 at head_dim 4, 2 at 8).
+constexpr int kFwdSlices = 4;
+constexpr int kFwdThreads = 32 * kFwdSlices;
+constexpr int kFwdBlocksPerSM = 4;  // the register budget: 128 a thread
+constexpr int kFwdChunk = 16;
+template <int HD>
+constexpr int kFwdRows = 16 / HD;
+
+// Keys a slice of the tiled forward: T split into kFwdSlices slices of
+// whole chunks, the last ones padded past T.
+__host__ __device__ __forceinline__ int forward_slice_keys(int t) {
+  constexpr int per = kFwdSlices * kFwdChunk;
+  return (t + per - 1) / per * kFwdChunk;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -138,15 +185,15 @@ __device__ __forceinline__ float logit2(const float* qi, const float* kj, int hd
   return s;
 }
 
-template <typename T, int HD>
-__global__ void window_attention_kernel(const T* __restrict__ q,
-                                        const T* __restrict__ k,
-                                        const T* __restrict__ v,
-                                        const float* __restrict__ key_valid,
-                                        T* __restrict__ out, float* __restrict__ stats,
-                                        int n_windows, int t, int c, int hd_rt, float scale) {
-  constexpr int kSlots = HD > 0 ? HD : kMaxHeadDim;
-  const int hd = HD > 0 ? HD : hd_rt;
+// Any head_dim <= 64 (blockDim.x == t): one thread a query row, an online
+// softmax over all T keys.
+template <typename T>
+__global__ void window_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                             const T* __restrict__ v,
+                                             const float* __restrict__ key_valid,
+                                             T* __restrict__ out, float* __restrict__ stats,
+                                             int n_windows, int t, int c, int hd, float scale) {
+  constexpr int kSlots = kMaxHeadDim;
   const int bn = blockIdx.x;  // batch * n_windows + window
   const int head = blockIdx.y;
   const int window = bn % n_windows;
@@ -217,6 +264,194 @@ __device__ __forceinline__ void load4(const float* src, float* dst) {
   dst[1] = x.y;
   dst[2] = x.z;
   dst[3] = x.w;
+}
+
+// Four values of a row from 16-byte (float) or 8-byte (bf16) aligned device
+// memory, in one load, as float32; zeros when ``live`` is false.
+__device__ __forceinline__ void load_row4(const float* src, float* dst, bool live) {
+  const float4 x = live ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  dst[0] = x.x;
+  dst[1] = x.y;
+  dst[2] = x.z;
+  dst[3] = x.w;
+}
+
+__device__ __forceinline__ void load_row4(const __nv_bfloat16* src, float* dst, bool live) {
+  const uint2 x = live ? *reinterpret_cast<const uint2*>(src) : make_uint2(0u, 0u);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  dst[0] = lo.x;
+  dst[1] = lo.y;
+  dst[2] = hi.x;
+  dst[3] = hi.y;
+}
+
+// Four float32 values to a row of 16-byte (float) or 8-byte (bf16) aligned
+// device memory, rounded to the element type, in one store.
+__device__ __forceinline__ void store_row4(float* dst, const float* x) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void store_row4(__nv_bfloat16* dst, const float* x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 y;
+  y.x = *reinterpret_cast<const unsigned*>(&lo);
+  y.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = y;
+}
+
+// The tiled forward (head_dim 4 and 8); see the note at the top. Block
+// (batch * window, head, tile of 32 R rows), kFwdThreads threads: warp w
+// walks key slice w, lane l holds rows l, l + 32, ... of the tile.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM) window_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ key_valid, T* __restrict__ out, float* __restrict__ stats,
+    int n_windows, int t, int c, float scale) {
+  constexpr int R = kFwdRows<HD>;
+  constexpr int C = kFwdChunk;
+  constexpr int S = kFwdSlices;
+  constexpr int RB = 32 * R;  // query rows a block
+  constexpr int P = HD + 2;   // a slice's partial of a row: m', l, acc
+  const int bn = blockIdx.x;  // batch * n_windows + window
+  const int head = blockIdx.y;
+  const int row0 = blockIdx.z * RB;
+  const int window = bn % n_windows;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int len = forward_slice_keys(t);
+  const int tp = S * len;  // keys staged, padding included
+  const float kscale = scale * kLog2e;
+
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);  // (tp, HD) k'
+  float* sv = sk + tp * HD;                     // (tp, HD)
+  float* sq = sv + tp * HD;                     // (RB, HD) the tile's q
+  float* spart = sq + RB * HD;                  // (S, P, RB) the slices' partials
+  float* sbias = spart + S * P * RB;            // (tp) 0, -FLT_MAX or -inf
+
+  // One thread a key row (and a query row): every load of the prologue is
+  // issued before any is waited for, in 8- or 16-byte vectors.
+  const size_t base = static_cast<size_t>(bn) * t * c + static_cast<size_t>(head) * HD;
+  const float* valid_row = key_valid + static_cast<size_t>(window) * t;
+  for (int j = threadIdx.x; j < max(tp, RB); j += blockDim.x) {
+    float kr[HD], vr[HD], qr[HD];
+    const bool key = j < t;
+    const bool query = j < RB && row0 + j < t;
+    const float valid = key ? valid_row[j] : 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      load_row4(k + base + static_cast<size_t>(j) * c + d, kr + d, key);
+      load_row4(v + base + static_cast<size_t>(j) * c + d, vr + d, key);
+      load_row4(q + base + static_cast<size_t>(row0 + j) * c + d, qr + d, query);
+    }
+    if (j < tp) {
+      sbias[j] = !key ? -INFINITY : valid > 0.f ? 0.f : -FLT_MAX;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        sk[j * HD + d] = valid > 0.f ? kr[d] * kscale : 0.f;
+        sv[j * HD + d] = vr[d];
+      }
+    }
+    if (j < RB) {
+#pragma unroll
+      for (int d = 0; d < HD; ++d) sq[j * HD + d] = qr[d];
+    }
+  }
+  __syncthreads();
+
+  float qr[R][HD], acc[R][HD], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) load4(sq + (r * 32 + lane) * HD + d, qr[r] + d);
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc[r][d] = 0.f;
+    // -FLT_MAX, not -inf: a chunk of padding keys (-inf) then gives
+    // 2^(-inf - m) = 0 and 2^(m - m) = 1, never inf - inf
+    m[r] = -FLT_MAX;
+    l[r] = 0.f;
+  }
+
+  const int j_end = (warp + 1) * len;
+  for (int j0 = warp * len; j0 < j_end; j0 += C) {
+    float s[R][C];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      float kj[HD];
+#pragma unroll
+      for (int d = 0; d < HD; d += 4) load4(sk + (j0 + cc) * HD + d, kj + d);
+      const float bias = sbias[j0 + cc];
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r][cc] = logit2<HD>(qr[r], kj, HD, bias);
+    }
+    // one rescale a row and chunk, whether or not the max moved
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) mx = fmaxf(mx, s[r][cc]);
+      const float corr = ex2(m[r] - mx);
+      m[r] = mx;
+      l[r] *= corr;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[r][d] *= corr;
+    }
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc) {
+      float vj[HD];
+#pragma unroll
+      for (int d = 0; d < HD; d += 4) load4(sv + (j0 + cc) * HD + d, vj + d);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = ex2(s[r][cc] - m[r]);
+        l[r] += p;
+#pragma unroll
+        for (int d = 0; d < HD; ++d) acc[r][d] = fmaf(p, vj[d], acc[r][d]);
+      }
+    }
+  }
+
+  // The slices' partials meet in shared memory; one thread a row merges
+  // them in slice order.
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* dst = spart + warp * P * RB + r * 32 + lane;
+    dst[0] = m[r];
+    dst[RB] = l[r];
+#pragma unroll
+    for (int d = 0; d < HD; ++d) dst[(2 + d) * RB] = acc[r][d];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < RB; i += blockDim.x) {
+    const int row = row0 + i;
+    if (row >= t) break;
+    float mx = -FLT_MAX;
+#pragma unroll
+    for (int w = 0; w < S; ++w) mx = fmaxf(mx, spart[w * P * RB + i]);
+    float sum = 0.f, a[HD];
+#pragma unroll
+    for (int d = 0; d < HD; ++d) a[d] = 0.f;
+#pragma unroll
+    for (int w = 0; w < S; ++w) {
+      const float* src = spart + w * P * RB + i;
+      const float f = ex2(src[0] - mx);
+      sum = fmaf(src[RB], f, sum);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) a[d] = fmaf(src[(2 + d) * RB], f, a[d]);
+    }
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) a[d] *= inv;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) store_row4(out + base + static_cast<size_t>(row) * c + d, a + d);
+    if (stats != nullptr) {
+      // natural units; -FLT_MAX stays exact where the window has no valid key
+      reinterpret_cast<float2*>(stats)[(static_cast<size_t>(bn) * gridDim.y + head) * t + row] =
+          make_float2(mx > -FLT_MAX ? mx * kLn2 : -FLT_MAX, inv);
+    }
+  }
 }
 
 // One halving step of reduce_scatter32: lanes with bit HALF set keep the
@@ -524,6 +759,20 @@ size_t tiled_backward_smem(int t) {
           (kBwdThreads / 32) * 2 * HD * KC) * sizeof(float);
 }
 
+// Shared memory of the tiled forward, in bytes: k', v and the bias of the
+// padded keys, the tile's q and the slices' partials (23 KB at T = 256 and
+// 50 KB at T = 1024, head_dim 4; 80 KB at T = 1024, head_dim 8).
+template <int HD>
+size_t tiled_forward_smem(int t) {
+  constexpr int RB = 32 * kFwdRows<HD>;
+  const size_t tp = static_cast<size_t>(kFwdSlices) * forward_slice_keys(t);
+  return (2 * tp * HD + tp + RB * HD + kFwdSlices * (HD + 2) * RB) * sizeof(float);
+}
+
+size_t wide_forward_smem(int t, int hd) {
+  return (2 * static_cast<size_t>(t) * hd + t) * sizeof(float);
+}
+
 size_t wide_backward_smem(int t, int hd) {
   return (static_cast<size_t>(t) * 4 + 4 * static_cast<size_t>(t) * hd + t) * sizeof(float);
 }
@@ -577,6 +826,20 @@ int launch_backward(const T* q, const T* k, const T* v, const float* key_valid, 
   }
 }
 
+template <typename T, int HD>
+cudaError_t launch_forward_tiled(const T* q, const T* k, const T* v, const float* key_valid,
+                                 T* out, float* stats, int batch, int n_windows, int t, int c,
+                                 float scale, cudaStream_t s) {
+  const size_t smem = tiled_forward_smem<HD>(t);
+  const cudaError_t err = allow_smem(window_attention_kernel<T, HD>, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int RB = 32 * kFwdRows<HD>;
+  const dim3 grid(batch * n_windows, c / HD, (t + RB - 1) / RB);
+  window_attention_kernel<T, HD><<<grid, kFwdThreads, smem, s>>>(q, k, v, key_valid, out, stats,
+                                                                 n_windows, t, c, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const float* key_valid, T* out, float* stats,
            int batch, int n_windows, int t, int c, int num_heads, float scale,
@@ -585,24 +848,22 @@ int launch(const T* q, const T* k, const T* v, const float* key_valid, T* out, f
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hd = c / num_heads;
-  const size_t smem = (2 * static_cast<size_t>(t) * hd + t) * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(batch * n_windows, num_heads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 4:
-      window_attention_kernel<T, 4><<<grid, t, smem, s>>>(q, k, v, key_valid, out, stats,
-                                                          n_windows, t, c, hd, scale);
-      break;
+      return static_cast<int>(launch_forward_tiled<T, 4>(q, k, v, key_valid, out, stats, batch,
+                                                         n_windows, t, c, scale, s));
     case 8:
-      window_attention_kernel<T, 8><<<grid, t, smem, s>>>(q, k, v, key_valid, out, stats,
-                                                          n_windows, t, c, hd, scale);
-      break;
-    default:
-      window_attention_kernel<T, 0><<<grid, t, smem, s>>>(q, k, v, key_valid, out, stats,
-                                                          n_windows, t, c, hd, scale);
+      return static_cast<int>(launch_forward_tiled<T, 8>(q, k, v, key_valid, out, stats, batch,
+                                                         n_windows, t, c, scale, s));
+    default: {
+      const size_t smem = wide_forward_smem(t, hd);
+      if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+      window_attention_wide_kernel<T><<<dim3(batch * n_windows, num_heads), t, smem, s>>>(
+          q, k, v, key_valid, out, stats, n_windows, t, c, hd, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -7,9 +7,11 @@ a plain C interface, loaded with ``ctypes``:
 
 - ``window_attention`` (csrc/window_attention.cu) replaces
   ``window_attention_fused`` (pallas_kernels.py:163-225), in float32 and in
-  bfloat16 (the mixed-precision train step), and its gradient
-  ``_pallas_wa_bwd`` (mde_tpu/ops/window_attention.py:103-110) with a
-  backward kernel in both types (one block per window and head, fed the
+  bfloat16 (the mixed-precision train step; at head_dim 4 and 8 a base-2
+  softmax over keys pre-scaled in shared memory, several query rows a
+  thread, the keys split into 4 slices merged in a fixed order), and its
+  gradient ``_pallas_wa_bwd`` (mde_tpu/ops/window_attention.py:103-110) with
+  a backward kernel in both types (one block per window and head, fed the
   forward's row statistics, which the forward writes only when a backward
   will follow, and its stored output; each probability formed once in
   register tiles, sums in a fixed order, no atomics);
@@ -271,7 +273,8 @@ def _window_shape(qw, kw, vw, num_heads: int, key_valid, name: str):
              f"{name}: inputs must be contiguous")
     _require(tuple(key_valid.shape) == (n, t),
              f"{name}: key_valid must be {(n, t)}, got {tuple(key_valid.shape)}")
-    _require(0 < t <= 1024, f"{name}: T={t} must be in 1..1024 (one thread a query)")
+    _require(0 < t <= 1024, f"{name}: T={t} must be in 1..1024 (the kernels' domain; at "
+                            "head widths other than 4 and 8 they run one thread a query)")
     _require(num_heads > 0 and c % num_heads == 0,
              f"{name}: C={c} not divisible by {num_heads} heads")
     return b, n, t, c, c // num_heads
@@ -286,8 +289,13 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats:
         return window_attention_plain(qw, kw, vw, num_heads, key_valid), None
     _require(qw.device.type == "cuda", f"window_attention: unsupported device {qw.device}")
     b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, "window_attention")
-    _require(hd <= 64 and (2 * t * hd + t) * 4 <= 48 * 1024,
+    # head_dim 4 and 8 take the tiled kernel (any T <= 1024, at most 80 KB of
+    # shared memory); other widths stage k, v and the mask row as float32
+    _require(hd in (4, 8) or (hd <= 64 and (2 * t * hd + t) * 4 <= 48 * 1024),
              f"window_attention: head_dim {hd} at T={t} exceeds the kernel's shared memory")
+    # the tiled kernel moves rows of 4 values in one access: 16 bytes in float32, 8 in bf16
+    _require(all(x.data_ptr() % (4 * x.element_size()) == 0 for x in (qw, kw, vw)),
+             f"window_attention: q/k/v must start {4 * qw.element_size()}-byte aligned")
     out = torch.empty_like(vw)
     stats = (torch.empty((b, n, num_heads, t, 2), dtype=torch.float32, device=qw.device)
              if need_stats else None)

@@ -63,15 +63,31 @@ def test_windowed_attention_matches_jax_xla_and_pallas(grid):
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL, err_msg=backend)
 
 
-def test_window_attention_plain_matches_jax_on_windows():
-    """The (B, N, T, C) op itself, with the flagship's ragged validity rows."""
+# (B, H, W, C, heads, window, padded H, padded W) of the (B, N, T, C) op's
+# cases: the flagship's ragged validity rows, a grid whose bottom windows hold
+# no valid key (their rows attend evenly to all keys), 10x10 windows (T = 100,
+# ragged in the kernel's chunks and slices), head_dim 8 and head_dim 16.
+WINDOW_CASES = {
+    "ragged": (1, 24, 40, 32, 8, 16, 32, 48),
+    "empty_bottom_windows": (1, 8, 16, 32, 8, 8, 16, 16),
+    "window10": (1, 14, 18, 32, 8, 10, 20, 20),
+    "head_dim8": (1, 16, 16, 32, 4, 8, 16, 16),
+    "head_dim16": (1, 12, 16, 64, 4, 8, 16, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_attention_plain_matches_jax_on_windows(case):
+    """The (B, N, T, C) op itself against the XLA path and the Pallas kernel
+    (interpret mode), on windows of a padded grid with random values in the
+    padding too."""
     rng = np.random.default_rng(1)
-    b, h, w, c, heads, ws = 1, 24, 40, 32, 8, 16
-    hp, wp = 32, 48
-    grids = [np.pad(x, ((0, 0), (0, hp - h), (0, wp - w), (0, 0))) for x in _qkv(rng, (b, h, w, c))]
-    wins = [np.array(jax_partition(jnp.asarray(x), ws)[0]) for x in grids]
+    b, h, w, c, heads, ws, hp, wp = WINDOW_CASES[case]
+    wins = [np.array(jax_partition(jnp.asarray(x), ws)[0]) for x in _qkv(rng, (b, hp, wp, c))]
     mask = _window_key_validity(h, w, hp, wp, ws)
     np.testing.assert_array_equal(mask, jax_key_validity(h, w, hp, wp, ws))
+    if case == "empty_bottom_windows":
+        assert (mask.max(axis=1) == 0).sum() == 2
     got = K.window_attention_plain(*map(torch.from_numpy, wins), heads, torch.from_numpy(mask))
     jw = [jnp.asarray(x) for x in wins]
     for want in (_xla_window_attention(*jw, heads, mask),

@@ -117,11 +117,25 @@ def test_window_attention_backward_bf16_plain_is_float32_rounded_once():
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _empty_windows(seed: int, dtype=np.float32):
+    """q/k/v windows of an 8x16 grid padded to 16x16 in 8x8 windows (T = 64,
+    C = 32, 8 heads): the two bottom windows hold no valid key."""
+    rng = np.random.default_rng(seed)
+    grids = [rng.standard_normal((1, 16, 16, 32)).astype(dtype) for _ in range(3)]
+    wins = [np.array(jax_partition(jnp.asarray(x), 8)[0]) for x in grids]
+    mask = _window_key_validity(8, 16, 16, 16, 8)
+    assert (mask.max(axis=1) == 0).sum() == 2
+    return wins, mask
+
+
+@pytest.mark.parametrize("grid", ["ragged", "empty_windows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_window_attention_plain_stats_matches_numpy(dtype):
+def test_window_attention_plain_stats_matches_numpy(dtype, grid):
     """``out`` is bit-equal to ``window_attention_plain``; (max, 1/sum) of
-    the masked, scaled logits match numpy (float64) within 1e-6 relative."""
-    wins, mask, _ = _windows(3)
+    the masked, scaled logits match numpy (float64) within 1e-6 relative. In
+    a window with no valid key the max is exactly the float32 minimum and
+    1/sum exactly 1/T: the kernel's forward writes the same."""
+    wins, mask = _windows(3)[:2] if grid == "ragged" else _empty_windows(3)
     q, k, v = (torch.from_numpy(x).to(dtype) for x in wins)
     m = torch.from_numpy(mask)
     out, stats = K.window_attention_plain_stats(q, k, v, 8, m)
@@ -135,6 +149,12 @@ def test_window_attention_plain_stats_matches_numpy(dtype):
     want_inv = 1.0 / np.exp(logits - want_m[..., None]).sum(-1)
     np.testing.assert_allclose(stats[..., 0].numpy(), want_m, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(stats[..., 1].numpy(), want_inv, rtol=1e-6, atol=0)
+    empty = torch.from_numpy(mask.max(axis=1) <= 0)
+    if grid == "empty_windows":
+        assert bool((stats[:, empty, ..., 0] == torch.finfo(torch.float32).min).all())
+        assert bool((stats[:, empty, ..., 1] == 1.0 / t).all())
+    else:
+        assert not empty.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
