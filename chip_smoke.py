@@ -28,9 +28,16 @@ Phases, each printing JSON lines:
               twice and with and without its row statistics, which are checked
               against the plain version's (-FLT_MAX exactly in a window with no
               valid key), the forward's time both ways, and the backward fed
-              those statistics against autograd through the plain version; K3,
-              K3's train form (the colour jitter inside) at both models' sizes
-              and over all 24 orders, K2 forward and backward,
+              those statistics against autograd through the plain version; K3
+              at both models' sizes, serving bucket 1 (timed too) and four
+              shapes of its other paths (unaligned rows, a ragged width, rows
+              too wide to stage, an output larger than one cooperative grid),
+              the same bits twice; K3's train form (the colour jitter inside)
+              at the same shapes and over all 24 orders, with the plan each
+              shape chose (one cooperative launch, or two launches at the last
+              two shapes), and the wrapper refusing
+              draws on the card or an order that is not a permutation; K2
+              forward and backward,
               K4 float32 and bf16 at six shapes, and K4's backward kernel in
               both types at four shapes against autograd through the plain
               version;
@@ -49,7 +56,8 @@ Phases, each printing JSON lines:
               through the plain versions (loss and gradients); (b) two bf16
               autocast steps; (d) the train step's CUDA-event times, peak
               memory and the profiler's split of its device time, with its
-              counts of launches and of pageable host-to-card copies; (c) the
+              counts of launches and of pageable host-to-card copies (and no
+              pinned one: K3's draws go by value); (c) the
               training CLI for 2 epochs on generated data, with its checkpoint
               and test predictions checked and every kernel of the path
               launched. DA-V2's train steps must launch K4's backward once per
@@ -148,7 +156,7 @@ KERNEL_NAMES = {
     "window_attention": ("window_attention_kernel",),
     "window_attention_backward": ("window_attention_backward_kernel",),
     "preprocess_u8": ("preprocess_u8_kernel",),
-    "preprocess_u8_train": ("gray_partial_kernel", "gray_mean_kernel", "preprocess_train_kernel"),
+    "preprocess_u8_train": ("preprocess_train_kernel",),
     "si_loss_sums": ("si_partial_kernel", "si_finish_kernel"),
     "si_loss_sums_backward": ("si_backward_kernel",),
     "flash_attention": ("flash_attention_kernel",),
@@ -371,27 +379,7 @@ def phase_kernels() -> dict:
                          ("ragged", (3, 1001)), ("ragged_chunks", (2, 5000))):
         results.update(_check_k2(K, label, shape, g, timed=label == "flagship_train"))
 
-    # K3 to the flagship's and to DA-V2's input size; times at the flagship's.
-    rgb = torch.randint(0, 256, (4, 426, 560, 3), dtype=torch.uint8, generator=g).to(dev)
-    for label, size in (("flagship", (448, 576)), ("da2", (448, 588))):
-        got = K.preprocess_u8(rgb, size)
-        want = K.preprocess_u8_plain(rgb, size)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        # u8 NHWC read once, float32 NCHW written once; ~12 FLOP an output
-        # value (two bilinear blends and the normalise); no one PyTorch call
-        # resizes and normalises.
-        work = bound(12 * got.numel(), rgb.numel() + 4 * got.numel(), "f32")
-        row = dict(max_abs_err=err, **timings(lambda: K.preprocess_u8(rgb, size),
-                                              lambda: K.preprocess_u8_plain(rgb, size), None,
-                                              work, KERNEL_NAMES["preprocess_u8"]))
-        emit({"phase": "kernels", "kernel": "preprocess_u8", "case": label,
-              "shape": [4, 426, 560, 3], "out": list(got.shape), **row})
-        check(tuple(got.shape) == (4, 3, *size), f"preprocess_u8 {label}: shape {tuple(got.shape)}")
-        check(err <= TOL_KERNEL, f"preprocess_u8 {label}: max-abs {err} > {TOL_KERNEL}")
-        results.setdefault("preprocess_u8", row)
-        results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
-    results["preprocess_u8_train"] = _check_k3_train(K, g, rgb)
+    results.update(_check_k3(K, g))
     results.update(_check_k4(K, g))
     return results
 
@@ -529,33 +517,96 @@ def _check_k1_backward(K, g, validity) -> dict:
     return out
 
 
-# Float operations a pixel in csrc/preprocess_train.cu, by adjustment
-# (brightness, contrast and saturation: a blend of 4 and a clamp of 2 a
-# channel, saturation's grey 5 more; hue's round trip 43), of the resize (3
-# channels x (four u8 scalings, two row blends and one column blend of 3))
-# and of the normalisation: K3 train's bound.
+def _check_k3(K, g) -> dict:
+    """K3's eval form at ``_k3_cases`` against its plain version, then its
+    train form (``_check_k3_train``): the rows of both."""
+    results = {}
+    # K3 to the flagship's and to DA-V2's input size, at serving bucket 1,
+    # and at shapes that take its other paths; times at the flagship's (the
+    # row) and at bucket 1.
+    rgb = torch.randint(0, 256, (4, 426, 560, 3), dtype=torch.uint8, generator=g).cuda()
+    for label, x, size in _k3_cases(g, rgb):
+        got = K.preprocess_u8(x, size)
+        again = K.preprocess_u8(x, size)
+        want = K.preprocess_u8_plain(x, size)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same_bits = torch.equal(got, again)
+        row = dict(max_abs_err=err, same_bits=same_bits)
+        if label in ("flagship", "bucket1"):
+            # u8 NHWC read once, float32 NCHW written once; ~12 FLOP an
+            # output value (two bilinear blends and the normalise); no one
+            # PyTorch call resizes and normalises.
+            work = bound(12 * got.numel(), x.numel() + 4 * got.numel(), "f32")
+            row.update(timings(lambda: K.preprocess_u8(x, size),
+                               lambda: K.preprocess_u8_plain(x, size), None,
+                               work, KERNEL_NAMES["preprocess_u8"]))
+        emit({"phase": "kernels", "kernel": "preprocess_u8", "case": label,
+              "shape": list(x.shape), "out": list(got.shape), **row})
+        check(tuple(got.shape) == (x.shape[0], 3, *size) and bool(torch.isfinite(got).all()),
+              f"preprocess_u8 {label}: shape {tuple(got.shape)}, or non-finite")
+        check(err <= TOL_KERNEL, f"preprocess_u8 {label}: max-abs {err} > {TOL_KERNEL}")
+        check(same_bits, f"preprocess_u8 {label}: two calls gave other bits")
+        if label == "flagship":
+            results["preprocess_u8"] = row
+        elif label == "bucket1":
+            results["preprocess_u8"]["bucket1"] = {
+                key: row[key] for key in ("profiler_ms", "device_ms", "ms", "bound_ms",
+                                          "bound_share")}
+        results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
+    results["preprocess_u8_train"] = _check_k3_train(K, g, rgb)
+    return results
+
+
+def _k3_cases(g, rgb):
+    """(label, u8 batch, output size) of K3's checks in both forms: the
+    flagship's and DA-V2's train batches, serving bucket 1, and shapes that
+    take the kernels' other paths: 159-byte source rows (staged byte by
+    byte), an output width that is not a multiple of 4 (stored value by
+    value), 24,000-byte source rows (too wide to stage: the taps come from
+    device memory; the train form's two-launch design) and a 2048x2048
+    output (more than one cooperative grid holds: the train form's
+    two-launch design on staged rows)."""
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, generator=g).cuda()
+
+    return (("flagship", rgb, (448, 576)), ("da2", rgb, (448, 588)),
+            ("bucket1", rgb[:1], (448, 576)), ("odd", u8(3, 37, 53, 3), (64, 96)),
+            ("ragged", u8(3, 37, 53, 3), (61, 93)), ("wide", u8(1, 6, 8000, 3), (5, 7001)),
+            ("large", u8(1, 1024, 1024, 3), (2048, 2048)))
+
+
+# The train form's design at each case, as its plan must choose it from the
+# shape: (cooperative, staged rows).
+K3_TRAIN_DESIGN = {"wide": (0, False), "large": (0, True)}
+
+
+# Float operations a pixel of K3's train form, by adjustment (brightness,
+# contrast and saturation: a blend of 4 and a clamp of 2 a channel,
+# saturation's grey 5 more; hue's round trip 43), of the resize (3 channels x
+# (four u8 scalings, two row blends and one column blend of 3)) and of the
+# normalisation: the function's work, K3 train's bound.
 JITTER_FLOP = (18, 18, 23, 43)
 RESIZE_FLOP, NORMALIZE_FLOP = 3 * (4 + 3 * 3), 3 * 2
 
 
 def _k3_train_flop(draws: torch.Tensor, pixels: int) -> int:
-    """Operations of one call for these draws: pass 1 resizes and applies
-    the adjustments before contrast in each sample's order, then takes the
-    grey (5 FLOP); pass 3 redoes the resize, applies all four and normalises."""
-    total = 0
-    for order in draws[:, 4:].long().tolist():
-        before = order[:order.index(1)]
-        total += pixels * (RESIZE_FLOP + sum(JITTER_FLOP[o] for o in before) + 5)
-        total += pixels * (RESIZE_FLOP + sum(JITTER_FLOP) + NORMALIZE_FLOP)
-    return total
+    """Operations of the function for these draws, each done once: the
+    resize, the four adjustments, the grey before contrast (5 FLOP) and the
+    normalisation, for every pixel of every sample."""
+    return draws.shape[0] * pixels * (RESIZE_FLOP + sum(JITTER_FLOP) + 5 + NORMALIZE_FLOP)
 
 
 def _check_k3_train(K, g, rgb) -> dict:
-    """K3's train form against its plain version on the same draws, at the
-    flagship's and DA-V2's input sizes, and on a batch of 24 that takes every
-    order of the four adjustments; two calls give the same bits. Draws go in
-    as the train step makes them (on the CPU, copied from pinned memory).
-    Times at the flagship's size, batch 4."""
+    """K3's train form against its plain version on the same draws, at
+    ``_k3_cases`` (bucket 1 aside) and on a batch of 24 that takes every
+    order of the four adjustments (in groups of samples where one
+    cooperative grid does not hold them); two calls give the same bits. Draws
+    go in as the train step makes them, on the CPU; the wrapper refuses draws
+    on the card and an order that is not a permutation. Each case emits the
+    plan the shape chose, and ``K3_TRAIN_DESIGN`` holds it to its design (one
+    cooperative launch where not listed). Times at the flagship's size,
+    batch 4."""
     import itertools
 
     from mde_tpu_torch.ops.image import color_jitter_draws
@@ -566,8 +617,9 @@ def _check_k3_train(K, g, rgb) -> dict:
 
     orders = list(itertools.permutations(range(4)))
     rgb24 = torch.randint(0, 256, (24, *rgb.shape[1:]), dtype=torch.uint8, generator=g).cuda()
-    cases = (("flagship", rgb, (448, 576), draws_for(4)), ("da2", rgb, (448, 588), draws_for(4)),
-             ("all_orders", rgb24, (448, 576), draws_for(24, orders)))
+    cases = [(label, x, size, draws_for(x.shape[0])) for label, x, size in _k3_cases(g, rgb)
+             if label != "bucket1"]
+    cases.append(("all_orders", rgb24, (448, 576), draws_for(24, orders)))
     row = {}
     for label, x, size, draws in cases:
         got = K.preprocess_u8_train(x, draws, size)
@@ -577,7 +629,13 @@ def _check_k3_train(K, g, rgb) -> dict:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         same_bits = torch.equal(got, again)
-        case = dict(max_abs_err=err, same_bits=same_bits)
+        chosen = K.train_plan(x.shape[0], *x.shape[1:3], *size)
+        plan = {key: getattr(chosen, key) for key, _ in chosen._fields_}
+        case = dict(max_abs_err=err, same_bits=same_bits, plan=plan)
+        coop, staged = K3_TRAIN_DESIGN.get(label, (1, True))
+        check(plan["cooperative"] == coop and (plan["stage_bytes"] > 0) == staged,
+              f"preprocess_u8_train {label}: plan {plan}, expected cooperative={coop}, "
+              f"staged={staged}")
         if label == "flagship":
             work = bound(_k3_train_flop(draws, size[0] * size[1]),
                          x.numel() + 4 * got.numel() + 4 * draws.numel(), "f32")
@@ -592,6 +650,20 @@ def _check_k3_train(K, g, rgb) -> dict:
         check(err <= TOL_KERNEL, f"preprocess_u8_train {label}: max-abs {err} > {TOL_KERNEL}")
         check(same_bits, f"preprocess_u8_train {label}: two calls gave other bits")
         row["max_abs_err"] = max(err, row.get("max_abs_err", 0.0))
+    # the wrapper's checks of the draws, before any launch
+    x, draws = rgb, draws_for(4)
+    bad = draws.clone()
+    bad[1, 4:] = torch.tensor([0.0, 1.0, 1.0, 3.0])
+    for what, d, match in (("draws on the card", draws.cuda(), "on the CPU"),
+                           ("an order that is not a permutation", bad, "permutation")):
+        launches = K.preprocess_u8_train.launches
+        try:
+            K.preprocess_u8_train(x, d, (448, 576))
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check(match in raised and K.preprocess_u8_train.launches == launches,
+              f"preprocess_u8_train took {what} (raised {raised!r})")
     return row
 
 
@@ -1067,6 +1139,7 @@ def _profile_step(step, step_ms: float) -> dict:
             "launches": sum(r[2] for r in rows),
             "kernel_launches": sum(n for name, _, n in rows if not name.startswith("Mem")),
             "pageable_h2d": sum(n for name, n in copies if "HtoD" in name and "Pageable" in name),
+            "pinned_h2d": sum(n for name, n in copies if "HtoD" in name and "Pinned" in name),
             "copies": copies, "plain_k1_backward": plain_k1,
             "our_kernels": ours, "softmax_backward": softmax_bwd,
             "our_kernels_share": sum(ms for ms, _ in ours.values()) / device_ms,
@@ -1213,6 +1286,7 @@ def phase_train(name: str) -> dict:
     emit({"phase": "train", "model": name, "check": "d", "train_step_ms": by_mode("step_ms"),
           "peak_mib": by_mode("peak_mib"), "busy_share": by_mode("busy_share_of_step"),
           "kernel_launches": by_mode("kernel_launches"), "pageable_h2d": by_mode("pageable_h2d"),
+          "pinned_h2d": by_mode("pinned_h2d"),
           "profile": timing})
     # The backward kernels left no attention recompute behind: no softmax
     # backward (K4, DA-V2) and no autograd through K1's plain version; the
@@ -1224,6 +1298,9 @@ def phase_train(name: str) -> dict:
                   f"{name} {dt} train step ran {key}: {t['kernels']['profile'].get(key)}")
         check(bool(t["plain"]["profile"].get(recompute)),
               f"{name} {dt} plain train step: the profile saw no {recompute}")
+        # K3's train form takes its draws by value: no pinned copy a step
+        pinned = t["kernels"]["profile"].get("pinned_h2d", 0)
+        check(pinned == 0, f"{name} {dt} train step made {pinned} pinned host-to-card copies")
     del model, step16
 
     # (c) the training CLI, end to end, on generated data

@@ -19,10 +19,14 @@ a plain C interface, loaded with ``ctypes``:
   (pallas_kernels.py:56-144), forward and backward;
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
-  precedes it in ``preprocess_eval``; ``preprocess_u8_train``
-  (csrc/preprocess_train.cu) is its train form, with the colour jitter of
-  ``preprocess_train`` (mde_tpu/ops/image.py::color_jitter) between the
-  resize and the normalisation, from draws made on the host;
+  precedes it in ``preprocess_eval`` (a band of output rows a block over
+  source rows staged in shared memory, 4 pixels a thread, 16-byte stores);
+  ``preprocess_u8_train`` (csrc/preprocess_train.cu) is its train form, with
+  the colour jitter of ``preprocess_train`` (mde_tpu/ops/image.py::color_jitter)
+  between the resize and the normalisation, in one cooperative launch (a
+  grid barrier before contrast; two plain launches where the shape allows no
+  cooperative grid) from draws made on the host and passed by value in the
+  launch's parameters;
 - ``flash_attention`` (csrc/flash_attention.cu) replaces ``flash_attention``
   (mde_tpu/ops/flash_attention.py:39-80), in float32 and in bfloat16, forward
   and backward; every ViT attention of the port runs through it. At DA-V2-S's
@@ -90,9 +94,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags is (or will be) built."""
+    """Where the library for the current sources, headers and flags is (or
+    will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmde_kernels_{h.hexdigest()[:16]}.so"
@@ -143,20 +148,22 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            ll = ctypes.c_longlong
             for name in ("mde_window_attention_f32", "mde_window_attention_bf16"):
                 getattr(lib, name).argtypes = [p] * 6 + [i, i, i, i, i, f, p]
                 getattr(lib, name).restype = i
             for name in ("mde_window_attention_backward_f32", "mde_window_attention_backward_bf16"):
                 getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, i, f, p]
                 getattr(lib, name).restype = i
-            ll = ctypes.c_longlong
             lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, p, i, ll, f, p]
             lib.mde_si_loss_sums_f32.restype = i
             lib.mde_si_loss_backward_f32.argtypes = [p, p, p, p, p, p, i, ll, f, p]
             lib.mde_si_loss_backward_f32.restype = i
-            lib.mde_preprocess_u8_f32.argtypes = [p, p, i, i, i, i, i, f, f, f, f, f, f, p]
+            lib.mde_preprocess_u8_f32.argtypes = [p, p] + [i] * 5 + [f] * 6 + [p]
             lib.mde_preprocess_u8_f32.restype = i
-            lib.mde_preprocess_u8_train_f32.argtypes = [p] * 5 + [i] * 5 + [f] * 6 + [p]
+            lib.mde_preprocess_u8_train_plan.argtypes = [i] * 5 + [p]
+            lib.mde_preprocess_u8_train_plan.restype = i
+            lib.mde_preprocess_u8_train_f32.argtypes = [p, p, p, ll, p, p] + [i] * 7 + [f] * 6 + [p]
             lib.mde_preprocess_u8_train_f32.restype = i
             for name in ("mde_flash_attention_f32", "mde_flash_attention_bf16"):
                 getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, ll, ll, f, p]
@@ -176,9 +183,11 @@ def _check(lib, err: int, name: str) -> None:
                            f"({lib.mde_error_string(err).decode()})")
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg) -> None:
+    """Raise a ValueError with ``msg`` (or ``msg()``, formatted only on
+    failure) unless ``cond``."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -544,16 +553,19 @@ def preprocess_u8_plain(rgb_u8: torch.Tensor, size) -> torch.Tensor:
 
 
 def _u8_shape(rgb_u8: torch.Tensor, size, name: str):
-    """The K3 kernels' conditions on the image batch; returns (B, H, W, OH, OW)."""
-    _require(rgb_u8.device.type == "cuda", f"{name}: unsupported device {rgb_u8.device}")
-    _require(rgb_u8.dtype == torch.uint8, f"{name}: expected uint8, got {rgb_u8.dtype}")
-    _require(rgb_u8.dim() == 4 and rgb_u8.shape[-1] == 3,
-             f"{name}: expected (B, H, W, 3), got {tuple(rgb_u8.shape)}")
-    _require(rgb_u8.is_contiguous(), f"{name}: input must be contiguous")
-    b, h, w, _ = rgb_u8.shape
+    """The K3 kernels' conditions on the image batch; returns (B, H, W, OH, OW).
+    On the host's hot path, so each message is formatted only if its
+    condition fails."""
+    shape = rgb_u8.shape
     oh, ow = int(size[0]), int(size[1])
+    _require(rgb_u8.device.type == "cuda", lambda: f"{name}: unsupported device {rgb_u8.device}")
+    _require(rgb_u8.dtype == torch.uint8, lambda: f"{name}: expected uint8, got {rgb_u8.dtype}")
+    _require(len(shape) == 4 and shape[3] == 3,
+             lambda: f"{name}: expected (B, H, W, 3), got {tuple(shape)}")
+    _require(rgb_u8.is_contiguous(), lambda: f"{name}: input must be contiguous")
+    b, h, w, _ = shape
     _require(0 < b <= 65535 and 0 < oh <= 65535 and ow > 0 and oh * ow < 2**31 - 1024,
-             f"{name}: batch {b} or output {oh}x{ow} out of the kernel's grid")
+             lambda: f"{name}: batch {b} or output {oh}x{ow} out of the kernel's grid")
     return b, h, w, oh, ow
 
 
@@ -598,30 +610,87 @@ def preprocess_u8_train_plain(rgb_u8: torch.Tensor, draws: torch.Tensor, size) -
     return normalize_imagenet(x).contiguous()
 
 
+class TrainPlan(ctypes.Structure):
+    """How the train-form kernel runs one shape on one card, as
+    ``mde_preprocess_u8_train_plan`` decides it from the shape alone: one
+    cooperative launch a group of samples, or two where no cooperative grid
+    fits or the source rows are too wide to stage; its grid and shared
+    memory. Every launch of the shape is handed this plan."""
+    _fields_ = [(key, ctypes.c_int) for key in (
+        "cooperative", "pixels_per_thread", "blocks_per_sample", "blocks_per_sm",
+        "samples_per_launch", "stage_bytes", "shared_bytes")]
+
+
+_ORDER_VALUES = [0.0, 1.0, 2.0, 3.0]
+
+
+def train_draw_rows(draws: torch.Tensor, name: str = "preprocess_u8_train") -> torch.Tensor:
+    """The (B, 8) float32 draws as the train-form launcher reads them from
+    host memory, a contiguous row a sample (four factors, then the order),
+    which it copies into the kernel's parameters. Draws on another device
+    raise: reading them back would be a hidden synchronisation. Each order
+    must be a permutation of 0..3."""
+    if draws.device.type != "cpu":
+        raise ValueError(f"{name}: draws must be on the CPU, got {draws.device}: the kernel "
+                         "takes them by value in its launch parameters, and reading them back "
+                         "from the card would synchronise the host with it")
+    if draws.dim() != 2 or draws.shape[1] != JITTER_DRAWS or draws.dtype != torch.float32:
+        raise ValueError(f"{name}: draws must be (B, {JITTER_DRAWS}) float32, got "
+                         f"{tuple(draws.shape)} {draws.dtype}")
+    rows = draws.detach().contiguous()
+    for i, order in enumerate(rows[:, 4:].tolist()):
+        if sorted(order) != _ORDER_VALUES:
+            raise ValueError(f"{name}: each order must be a permutation of 0..3; sample [{i}] "
+                             f"has {order}")
+    return rows
+
+
+def sample_groups(batch: int, per_launch: int):
+    """[(first sample, count)] of the launches that cover a batch in order."""
+    return [(s, min(per_launch, batch - s)) for s in range(0, batch, per_launch)]
+
+
+_train_plans = {}
+
+
+def train_plan(batch: int, h: int, w: int, oh: int, ow: int) -> TrainPlan:
+    """The ``TrainPlan`` of this shape on the current card, asked of the
+    launcher once a shape and kept here: its only copy."""
+    key = (torch.cuda.current_device(), batch, h, w, oh, ow)
+    plan = _train_plans.get(key)
+    if plan is None:
+        lib = load()
+        plan = TrainPlan()
+        _check(lib, lib.mde_preprocess_u8_train_plan(batch, h, w, oh, ow, ctypes.addressof(plan)),
+               "preprocess_u8_train plan")
+        _train_plans[key] = plan
+    return plan
+
+
 def preprocess_u8_train(rgb_u8: torch.Tensor, draws: torch.Tensor, size) -> torch.Tensor:
     """(B, H, W, 3) uint8 and (B, 8) jitter draws -> (B, 3, size[0], size[1])
-    jittered, normalised float32. Draws on the CPU are copied to the card
-    once, from pinned memory and without blocking the host."""
+    jittered, normalised float32. On a CUDA tensor the draws stay on the CPU
+    (``train_draw_rows``) and go to the kernel by value, a group of samples
+    a launch as the shape's ``train_plan`` says."""
     if rgb_u8.device.type == "cpu":
         return preprocess_u8_train_plain(rgb_u8, draws, size)
     name = "preprocess_u8_train"
     b, h, w, oh, ow = _u8_shape(rgb_u8, size, name)
-    _require(tuple(draws.shape) == (b, JITTER_DRAWS) and draws.dtype == torch.float32,
-             f"{name}: draws must be ({b}, {JITTER_DRAWS}) float32, got "
-             f"{tuple(draws.shape)} {draws.dtype}")
-    if draws.device.type == "cpu":
-        draws = draws.contiguous().pin_memory().to(rgb_u8.device, non_blocking=True)
-    _require(draws.device == rgb_u8.device and draws.is_contiguous(),
-             f"{name}: draws must be contiguous, on the CPU or on {rgb_u8.device}")
-    chunks = -(-oh * ow // 1024)  # the first pass's partial grey sums
-    partial = torch.empty((b, chunks), dtype=torch.float32, device=rgb_u8.device)
-    mean = torch.empty(b, dtype=torch.float32, device=rgb_u8.device)
+    if draws.shape != (b, JITTER_DRAWS):
+        raise ValueError(f"{name}: draws must be ({b}, {JITTER_DRAWS}), got {tuple(draws.shape)}")
+    rows = train_draw_rows(draws, name)
+    plan = train_plan(b, h, w, oh, ow)
+    # the partial grey sums, one a block
+    partial = torch.empty(b * plan.blocks_per_sample, dtype=torch.float32, device=rgb_u8.device)
     out = torch.empty((b, 3, oh, ow), dtype=torch.float32, device=rgb_u8.device)
     lib = load()
-    err = lib.mde_preprocess_u8_train_f32(rgb_u8.data_ptr(), draws.data_ptr(), partial.data_ptr(),
-                                          mean.data_ptr(), out.data_ptr(), b, h, w, oh, ow,
-                                          *IMAGENET_MEAN, *IMAGENET_STD, _stream(rgb_u8))
-    _check(lib, err, name)
+    stream = _stream(rgb_u8)
+    for first, count in sample_groups(b, plan.samples_per_launch):
+        err = lib.mde_preprocess_u8_train_f32(
+            rgb_u8.data_ptr(), rows[first].data_ptr(), partial.data_ptr(), partial.numel(),
+            out.data_ptr(), ctypes.addressof(plan), b, first, count, h, w, oh, ow,
+            *IMAGENET_MEAN, *IMAGENET_STD, stream)
+        _check(lib, err, name)
     preprocess_u8_train.launches += 1
     return out
 

@@ -122,6 +122,8 @@ def test_window_attention_backward_matches_jax_vjp():
 
 @pytest.mark.parametrize("shape,size", [
     ((2, 426, 560, 3), (448, 576)),  # the serving path's resize
+    ((1, 426, 560, 3), (448, 576)),  # serving bucket 1
+    ((1, 426, 560, 3), (448, 588)),  # DA-V2's input size
     ((3, 37, 53, 3), (64, 96)),      # odd sizes, upsample
     ((1, 90, 70, 3), (45, 56)),      # downsample
 ])

@@ -15,6 +15,11 @@
   ``preprocess_train`` with the JAX draws injected, once for each of the 24
   orders of the four adjustments: rtol 1e-5, atol 1e-5, the tolerance of
   ``tests/test_torch_train.py::test_preprocess_train_matches_jax_with_injected_draws``.
+- K3's train-form wrapper on the host: the identity its kernel uses for
+  ``fmodf(x, 1)`` (x - trunc(x), plus 1 where negative, equals
+  ``torch.remainder(x, 1.0)``), the rows of draws the launcher reads, its
+  refusal of an order that is not a permutation and of draws off the CPU,
+  and the split of a batch into launches.
 - The draws: ``color_jitter_draws`` then ``color_jitter_apply`` is
   ``color_jitter`` from the same generator, which is left in the same state.
 - The plain switch on the CPU: ``preprocess_train(plain=True)`` and
@@ -263,6 +268,76 @@ def test_preprocess_u8_train_is_preprocess_train_on_cpu():
     assert torch.equal(K.preprocess_u8_train_plain(u8, packed, (32, 48)), rgb)
     assert torch.equal(rgb_p, rgb) and torch.equal(d_p, d)
     assert K.preprocess_u8_train.launches == launches
+
+
+def test_remainder_by_truncation_matches_torch_remainder():
+    """The train-form kernel's ``remainder1``: x - trunc(x), plus 1 where
+    that is negative, equals ``torch.remainder(x, 1.0)`` in float32 (as
+    values: the sign of a zero may differ), over a seeded sweep of
+    [-1.5, 2.5] and at the edges (zeros, +-2^-25, 1 - 2^-24, integers)."""
+    rng = np.random.default_rng(9)
+    edges = np.array([0.0, -0.0, 2.0**-25, -(2.0**-25), 1 - 2.0**-24, -(1 - 2.0**-24), 1.0,
+                      -1.0, 2.0, -1.5, 2.5, 0.5, -0.5], dtype=np.float32)
+    x = torch.from_numpy(np.concatenate([rng.uniform(-1.5, 2.5, 200_000).astype(np.float32),
+                                         edges]))
+    r = x - torch.trunc(x)
+    got = torch.where(r < 0, r + 1.0, r)
+    want = torch.remainder(x, 1.0)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert bool(((got >= 0) & (got <= 1)).all())
+
+
+def test_train_draw_rows_are_what_the_launcher_reads():
+    """A (B, 8) CPU row goes to the launcher as eight little-endian float32,
+    four factors then the order, a contiguous row a sample (the launcher
+    copies a group's rows into the kernel's ``SampleDraws``); a strided view
+    is made contiguous first."""
+    import struct
+
+    want = [[1.1, 0.9, 1.0, 0.05, 3, 1, 0, 2], [0.8, 1.2, 0.95, -0.1, 0, 1, 2, 3]]
+    strided = torch.tensor(want, dtype=torch.float32).t().contiguous().t()
+    assert not strided.is_contiguous()
+    rows = K.train_draw_rows(strided)
+    assert rows.dtype == torch.float32 and rows.shape == (2, K.JITTER_DRAWS)
+    assert rows.is_contiguous() and rows.device.type == "cpu"
+    raw = rows.numpy().tobytes()
+    assert raw == b"".join(struct.pack("<8f", *r) for r in want)
+    assert rows[1].data_ptr() - rows[0].data_ptr() == 4 * K.JITTER_DRAWS
+    drawn = K.pack_jitter_draws(*I.color_jitter_draws(3, *T.JITTER,
+                                                      generator=torch.Generator().manual_seed(5)))
+    assert K.train_draw_rows(drawn).data_ptr() == drawn.data_ptr()  # no copy on the hot path
+
+
+@pytest.mark.parametrize("order", [(0, 1, 1, 3), (0, 1, 2, 4), (0, 1, 2, 2.5), (-1, 0, 1, 2),
+                                   (3, 3, 3, 3)],
+                         ids=["repeat", "four", "fraction", "negative", "constant"])
+def test_train_draw_rows_refuse_an_order_that_is_not_a_permutation(order):
+    rows = torch.tensor([[1.0, 1.0, 1.0, 0.0, 3, 2, 1, 0],
+                         [1.0, 1.0, 1.0, 0.0, *order]], dtype=torch.float32)
+    with pytest.raises(ValueError, match="permutation of 0..3; sample \\[1\\]"):
+        K.train_draw_rows(rows)
+
+
+def test_train_draw_rows_refuse_draws_off_the_cpu():
+    """Draws on another device would have to be read back before the launch
+    (a hidden synchronisation on the card): refused, and so is a wrong
+    shape or type."""
+    with pytest.raises(ValueError, match="must be on the CPU"):
+        K.train_draw_rows(torch.empty(2, K.JITTER_DRAWS, device="meta"))
+    with pytest.raises(ValueError, match="float32"):
+        K.train_draw_rows(torch.zeros(2, K.JITTER_DRAWS, dtype=torch.float64))
+    with pytest.raises(ValueError, match="float32"):
+        K.train_draw_rows(torch.zeros(2, 7))
+
+
+@pytest.mark.parametrize("batch,per_launch", [(4, 4), (24, 16), (130, 64), (3, 1), (5, 64)])
+def test_sample_groups_cover_each_sample_once_in_order(batch, per_launch):
+    groups = K.sample_groups(batch, per_launch)
+    assert all(0 < count <= per_launch for _, count in groups)
+    covered = [s for first, count in groups for s in range(first, first + count)]
+    assert covered == list(range(batch))
+    assert len(groups) == -(-batch // per_launch)
 
 
 def test_make_train_step_plain_switch_on_cpu():
