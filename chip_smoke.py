@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
@@ -39,8 +40,12 @@ Phases, each printing JSON lines:
               draws on the card or an order that is not a permutation; K2
               forward and backward,
               K4 float32 and bf16 at six shapes, and K4's backward kernel in
-              both types at four shapes against autograd through the plain
-              version;
+              both types at eleven shapes (DA-V2-S and DA-V2-B training,
+              DA-V2-L, the flagship's branch, ragged, one block, and N one
+              below, at and one above 64 and 128 rows) against autograd
+              through the plain version, with each pass's profiler time,
+              ptxas's registers and spills and the launch plan (rows and
+              shared bytes a block, blocks an SM) at DA-V2-S's shape;
   4. serve    for each model: a checkpoint behind the port's HTTP server,
               built with both TF32 flags at torch's defaults (the server must
               turn them off), answering concurrent .npy requests with no K1
@@ -107,8 +112,14 @@ K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
 K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
             ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
             ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)))
-# K4's backward cases: DA-V2-S training, DA-V2-L, the flagship's branch, ragged.
-K4_BWD_CASES = ("da2s_train", "da2l", "flagship_b1", "ragged")
+# K4's backward cases: DA-V2-S and DA-V2-B training, DA-V2-L, the flagship's
+# branch, ragged, a grid smaller than one wave, and N one below, at and one
+# above the 64 and 128 rows a block can take.
+K4_BWD_CASES = (("da2s_train", (4, 1345, 6, 64)), ("da2b_train", (4, 1345, 12, 64)),
+                ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
+                ("ragged", (2, 130, 6, 64)), ("one_block", (1, 65, 1, 64)),
+                ("n63", (1, 63, 2, 64)), ("n64", (1, 64, 2, 64)), ("n127", (1, 127, 2, 64)),
+                ("n128", (1, 128, 2, 64)), ("n129", (1, 129, 2, 64)))
 # rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
 # (K4's backward, and K1's)
 TOL_K4_GRAD = 1e-5
@@ -242,6 +253,21 @@ def profiler_ms(fn, names, n: int = 20):
         if total > 0:
             return total / 1e3 / n
     return "not measured"
+
+
+def profiler_split_ms(fn, names, n: int = 20) -> dict:
+    """Device time per call of each kernel in ``names`` (matched as in
+    ``profiler_ms``), from one profiler window over ``n`` calls; a window that
+    recorded one of them as nothing is taken again, twice at most; then "not
+    measured"."""
+    for _ in range(3):
+        events = [e for e in profiled(fn, n)
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        split = {name: sum(e.device_time_total for e in events if name in e.key) / 1e3 / n
+                 for name in names}
+        if all(ms > 0 for ms in split.values()):
+            return split
+    return dict.fromkeys(names, "not measured")
 
 
 def timings(kernel_fn, plain_fn, library_fn, work: dict, names=None) -> dict:
@@ -711,10 +737,19 @@ def _check_k4(K, g) -> dict:
             check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
         out[name] = dict(cases["da2s_train"],
                          max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+    out.update(_check_k4_backward_all(K, g))
+    return out
+
+
+def _check_k4_backward_all(K, g) -> dict:
+    """K4's backward kernel in both types at every case of ``K4_BWD_CASES``;
+    each row carries the largest errors over the cases and the times at
+    DA-V2-S's training shape."""
+    out = {}
     for dtype, name, tol in ((torch.float32, "flash_attention_backward", TOL_K4_GRAD),
                              (torch.bfloat16, "flash_attention_backward_bf16", TOL_K4_GRAD_BF16)):
         cases = {label: _check_k4_backward(K, g, label, shape, dtype, name, tol)
-                 for label, shape in K4_CASES if label in K4_BWD_CASES}
+                 for label, shape in K4_BWD_CASES}
         out[name] = dict(cases["da2s_train"],
                          max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                          max_rel_l2=max(c["max_rel_l2"] for c in cases.values()))
@@ -763,6 +798,17 @@ def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) ->
                          lambda: torch.autograd.grad(lib_out, leaves, lib_cot, retain_graph=True),
                          work,
                          KERNEL_NAMES["flash_attention_backward"] if label == "da2s_train" else None))
+    if label == "da2s_train":
+        # each pass's own device time, and what ptxas and the launcher give
+        # the kernels: registers, spills, static and dynamic shared memory,
+        # rows a block and blocks an SM
+        names = KERNEL_NAMES["flash_attention_backward"]
+        row["passes_profiler_ms"] = profiler_split_ms(
+            lambda: K._flash_attention_backward(q, k, v, o, lse, cot), names)
+        row["ptxas"] = [r for r in _ptxas(K.build_log)
+                        if any(n_ in r["kernel"] for n_ in names)]
+        if hasattr(K, "flash_attention_backward_plan"):  # not in trees before the redesign
+            row["plan"] = K.flash_attention_backward_plan(dtype, n)
     emit({"phase": "kernels", "kernel": name, "case": label, "shape": list(shape), **row})
     check(all(x.dtype == dtype and x.shape == shape and bool(torch.isfinite(x).all())
               for x in got), f"{name} {label}: gradients of the wrong dtype or shape, or non-finite")
@@ -1356,6 +1402,15 @@ def main() -> int:
     os.environ["WANDB_MODE"] = "disabled"  # no experiment tracker may reach the network
     kind, _ = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--k4-backward-only"]:
+        # K4's backward alone, at every case in both types: the quick run
+        # that compares two trees in turns on one card
+        from mde_tpu_torch.ops import kernels as K
+
+        emit({"k4_backward": _check_k4_backward_all(K, torch.Generator().manual_seed(SEED))})
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only one is "
+          "--k4-backward-only")
     kernels = phase_kernels()
     by_path = {}
     for name in ("flagship", "da2"):

@@ -38,7 +38,11 @@ a plain C interface, loaded with ``ctypes``:
   gradients kept in registers and K/V (or q/dO) streamed through shared
   memory by ``cp.async``. The backward is a kernel too (delta, then dK/dV,
   then dQ; deterministic, no atomics), fed the forward's log-sum-exp, which
-  the forward writes only when a backward will follow.
+  the forward writes only when a backward will follow; in float32 each
+  streamed tile is split into its TF32 parts once a block, and in bf16 the
+  warps' own rows go into registers once, dQ's as two 16-row tiles a warp
+  (``flash_attention_backward_plan`` reports rows, threads, shared bytes and
+  blocks an SM).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
@@ -171,6 +175,8 @@ def load():
             for name in ("mde_flash_attention_backward_f32", "mde_flash_attention_backward_bf16"):
                 getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, ll, ll, f, p]
                 getattr(lib, name).restype = i
+            lib.mde_flash_attention_backward_plan.argtypes = [i, i, p]
+            lib.mde_flash_attention_backward_plan.restype = i
             lib.mde_error_string.argtypes = [i]
             lib.mde_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -839,6 +845,20 @@ def _flash_attention_backward(q, k, v, out, lse, dout):
     else:
         flash_attention.backward_launches += 1
     return dq, dk, dv
+
+
+def flash_attention_backward_plan(dtype, n: int) -> dict:
+    """What the backward kernels of ``dtype`` launch for ``n`` tokens: threads
+    a block, and for the dK/dV and the dQ kernel rows a block, blocks a
+    (batch, head), dynamic shared bytes and resident blocks an SM (asked of
+    the runtime on the current card)."""
+    lib = load()
+    out = (ctypes.c_int * 9)()
+    err = lib.mde_flash_attention_backward_plan(int(dtype == torch.bfloat16), n, out)
+    _check(lib, err, "flash_attention backward plan")
+    keys = ("threads", "dkdv_rows", "dq_rows", "dkdv_blocks_per_head", "dq_blocks_per_head",
+            "dkdv_smem", "dq_smem", "dkdv_blocks_per_sm", "dq_blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -22,7 +22,10 @@ from mde_tpu_torch.ops import kernels as K
 
 torch.set_num_threads(2)
 
-SHAPES = {"dinov2_branch": (2, 321, 6, 64), "ragged": (1, 130, 6, 64)}
+# (B, N, H, D): the flagship's DINOv2 branch, a ragged tile, N one below and
+# one above the backward kernel's 128-row edge (and past 64), and one token.
+SHAPES = {"dinov2_branch": (2, 321, 6, 64), "ragged": (1, 130, 6, 64),
+          "n127": (1, 127, 2, 64), "n129": (1, 129, 2, 64), "one_token": (2, 1, 2, 64)}
 
 
 def _qkv(seed, shape):
@@ -31,7 +34,10 @@ def _qkv(seed, shape):
 
 
 def _rel_l2(a, b):
-    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    """rel-L2 of a against b; 0 where they agree exactly (at one token dq and
+    dk are exactly 0 in both: the softmax over one key has no gradient)."""
+    num, den = float(np.linalg.norm(a - b)), float(np.linalg.norm(b))
+    return 0.0 if num == 0 else (num / den if den > 0 else float("inf"))
 
 
 @pytest.mark.parametrize("case", sorted(SHAPES))
