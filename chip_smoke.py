@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
+    python3 chip_smoke.py --k2-only            # K2's checks and times alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
@@ -78,6 +79,7 @@ It exits non-zero at once where no CUDA device is visible.
 
 from __future__ import annotations
 
+import collections
 import copy
 import io
 import json
@@ -130,6 +132,14 @@ TOL_K4_GRAD_BF16 = 2e-2
 DA2_SETS = ("model.model_type=DepthAnythingV2_vits", "framework.input_size=[448,588]")
 TOL_KERNEL = 1e-5  # kernel vs plain, float32, same inputs
 TOL_K2 = 1e-5  # K2 sums relative; backward max-abs over the plain gradient's max-abs
+# K2's cases (label, shape, storage offset in floats), timed at the first:
+# the flagship and DA-V2 train steps (vector path, a wave of tiles), n odd
+# (scalar path, two tiles a sample), three ragged vector tiles, twenty
+# ragged scalar tiles, and the flagship's shape with rows off 16 bytes
+# (scalar path, a wave of tiles).
+K2_CASES = (("flagship_train", (4, 448, 576), 0), ("da2_train", (4, 448, 588), 0),
+            ("ragged", (3, 1001), 0), ("ragged_chunks", (2, 5000), 0),
+            ("ragged_tiles", (5, 9999), 0), ("misaligned", (4, 448, 576), 1))
 TOL_K1_BF16 = 1e-2  # max-abs, about one bf16 ulp at |out| ~ 2 (K1 and K4)
 # K1's row statistics (max, 1/sum) against the plain version's, relative:
 # the same float32 logits, summed in another order.
@@ -158,6 +168,9 @@ SFU_EX2_PER_CLOCK = 16
 SM_CLOCK_HZ = None  # set by phase_device
 
 
+# K2's forward before its redesign: two launches (the parent's tree in a
+# comparison in turns).
+K2_PARENT_NAMES = ("si_partial_kernel", "si_finish_kernel")
 # The keys every row of the final kernels line carries.
 ROW_KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "device_ms", "profiler_ms", "bound_ms", "bound_by", "library_ms"}
@@ -168,7 +181,7 @@ KERNEL_NAMES = {
     "window_attention_backward": ("window_attention_backward_kernel",),
     "preprocess_u8": ("preprocess_u8_kernel",),
     "preprocess_u8_train": ("preprocess_train_kernel",),
-    "si_loss_sums": ("si_partial_kernel", "si_finish_kernel"),
+    "si_loss_sums": ("si_sums_kernel",),
     "si_loss_sums_backward": ("si_backward_kernel",),
     "flash_attention": ("flash_attention_kernel",),
     "flash_attention_backward": ("flash_attention_delta_kernel", "flash_attention_dkdv_kernel",
@@ -270,15 +283,16 @@ def profiler_split_ms(fn, names, n: int = 20) -> dict:
     return dict.fromkeys(names, "not measured")
 
 
-def timings(kernel_fn, plain_fn, library_fn, work: dict, names=None) -> dict:
+def timings(kernel_fn, plain_fn, library_fn, work: dict, names=None, profiler_n: int = 20) -> dict:
     """Per-call and back-to-back times of a kernel, its plain version and its
     library yardstick (None where no one PyTorch call computes the function),
-    beside the bound ``work``; with ``names``, the kernels' profiler time."""
+    beside the bound ``work``; with ``names``, the kernels' profiler time over
+    ``profiler_n`` calls."""
     out = {"ms": cuda_ms(kernel_fn), "plain_ms": cuda_ms(plain_fn),
            "device_ms": device_ms(kernel_fn), "plain_device_ms": device_ms(plain_fn),
            "library_ms": None if library_fn is None else device_ms(library_fn), **work}
     if names:
-        out["profiler_ms"] = profiler_ms(kernel_fn, names)
+        out["profiler_ms"] = profiler_ms(kernel_fn, names, profiler_n)
     # against the kernels' own time where the profiler gave it: below about
     # 0.08 ms device_ms reads the host's launch rate
     basis = "profiler_ms" if isinstance(out.get("profiler_ms"), float) else "device_ms"
@@ -397,13 +411,7 @@ def phase_kernels() -> dict:
         results[name]["max_abs_err"] = max(err, results[name]["max_abs_err"])
     results.update(k1)
 
-    # K2 at the flagship train step's shape (n = 126 * 2048 a sample), at
-    # DA-V2's (n = 128.6 * 2048: a ragged last chunk) and at small ragged
-    # shapes (one chunk, several chunks), with the target's gradient too
-    # where untimed. Times at the flagship train step's shape only.
-    for label, shape in (("flagship_train", (4, 448, 576)), ("da2_train", (4, 448, 588)),
-                         ("ragged", (3, 1001)), ("ragged_chunks", (2, 5000))):
-        results.update(_check_k2(K, label, shape, g, timed=label == "flagship_train"))
+    results.update(_check_k2_all(K, g))
 
     results.update(_check_k3(K, g))
     results.update(_check_k4(K, g))
@@ -854,28 +862,64 @@ def _k1_timings(K, q, k, v, heads: int, m) -> dict:
                        sq, sk, sv, attn_mask=mask), work, KERNEL_NAMES["window_attention"])
 
 
-def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
-    """K2 forward and backward against the plain version: positive depths and
-    a log-ratio with a non-zero mean and a spread, so neither sum is near zero
-    or constant. Returns the numbers of a timed case."""
-    dev, b = "cuda", shape[0]
+def _k2_inputs(shape, g, offset: int = 0):
+    """Positive depths and a log-ratio with a non-zero mean and a spread, so
+    neither sum is near zero or constant; on the card, each a contiguous view
+    ``offset`` floats into its storage (1: rows off 16 bytes)."""
     target = torch.rand(shape, generator=g) * 9.9 + 0.1
     pred = target * torch.exp(0.3 + 0.5 * torch.randn(shape, generator=g))
-    pred, target = pred.to(dev), target.to(dev)
+    n = pred.numel()
+
+    def place(x):
+        flat = torch.empty(n + offset, device="cuda")
+        flat[offset:] = x.reshape(-1).cuda()
+        return flat[offset:].view(shape)
+
+    return place(pred), place(target)
+
+
+def _check_k2(K, label: str, shape, g, timed: bool, offset: int = 0) -> dict:
+    """K2 forward and backward against the plain version; the forward also
+    gives the same bits on a second call and through the autograd Function,
+    with its launch plan. Returns the numbers of a timed case."""
+    dev, b = "cuda", shape[0]
+    pred, target = _k2_inputs(shape, g, offset)
     s1, s2 = K.si_loss_sums(pred, target)
     r1, r2 = K.si_loss_sums_plain(pred, target)
+    again = K.si_loss_sums(pred, target)
+    leaf = pred.clone().requires_grad_()
+    graph = K.si_loss_sums(leaf, target)
     torch.cuda.synchronize()
+    check(graph[0].grad_fn is not None, f"si_loss_sums {label}: no autograd graph")
+    same_bits = all(torch.equal(x, y) for x, y in zip((s1, s2, s1, s2), (*again, *graph)))
     rel = max(((s1 - r1).abs() / r1.abs()).max().item(), ((s2 - r2).abs() / r2.abs()).max().item())
     err = max((s1 - r1).abs().max().item(), (s2 - r2).abs().max().item())
-    fwd = dict(max_abs_err=err, max_rel_err=rel)
+    fwd = dict(max_abs_err=err, max_rel_err=rel, same_bits=same_bits)
+    if hasattr(K, "si_loss_sums_plan"):  # not in trees before the redesign
+        aligned = pred.data_ptr() % 16 == 0 and target.data_ptr() % 16 == 0
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        fwd["plan"] = K.si_loss_sums_plan(b, pred[0].numel(), aligned, sms)._asdict()
+        fwd["plan"]["threads"] = K.SI_SUM_THREADS
+        names = KERNEL_NAMES["si_loss_sums"]
+    else:
+        names = K2_PARENT_NAMES
     n = pred.numel()
     if timed:  # pred and target read once; two logs and four FLOP an element
+        # 100 calls a profiler window: at 20, one window in two read this
+        # 6 us kernel up to 0.0018 ms low (PERF.md, K2 findings)
         fwd.update(timings(lambda: K.si_loss_sums(pred, target),
                            lambda: K.si_loss_sums_plain(pred, target), None,
-                           bound(6 * n, 8 * n + 8 * b, "f32"), KERNEL_NAMES["si_loss_sums"]))
+                           bound(6 * n, 8 * n + 8 * b, "f32"), names, profiler_n=100))
+        # device kernels a call, as the profiler counts them over 100 calls
+        launched = sum(e.count for e in profiled(lambda: K.si_loss_sums(pred, target), 100)
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")
+                       and any(name in e.key for name in names))
+        fwd["device_kernels_a_call"] = launched / 100
     emit({"phase": "kernels", "kernel": "si_loss_sums", "case": label, "shape": list(shape),
-          "sums": [r1.tolist(), r2.tolist()], **fwd})
+          "storage_offset": offset, "sums": [r1.tolist(), r2.tolist()], **fwd})
     check(rel <= TOL_K2, f"si_loss_sums {label}: relative error {rel} > {TOL_K2}")
+    check(same_bits, f"si_loss_sums {label}: not the same bits on a second call or through "
+          "the autograd Function")
 
     # The train step never needs the target's gradient; the ragged cases check it too.
     need_target = not timed
@@ -899,6 +943,37 @@ def _check_k2(K, label: str, shape, g, timed: bool) -> dict:
           "shape": list(shape), "dtarget": need_target, **bwd})
     check(rel <= TOL_K2, f"si_loss_sums backward {label}: max-abs over max-abs {rel} > {TOL_K2}")
     return {"si_loss_sums": fwd, "si_loss_sums_backward": bwd} if timed else {}
+
+
+def _sass_counts(K, marker: str) -> dict:
+    """Each kernel of the built library whose name holds ``marker``: its SASS
+    instructions in all and by opcode, from ``cuobjdump -sass`` (the
+    toolkit's, beside nvcc)."""
+    try:
+        tool = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+        text = subprocess.run([tool, "-sass", str(K.library_path())],
+                              capture_output=True, text=True, timeout=120).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        return {"error": repr(e)}
+    counts = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        name = func.split("\n", 1)[0].strip()
+        if marker not in name:
+            continue
+        ops = [m.group(1).split(".")[0]
+               for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
+        counts[name] = {"instructions": len(ops),
+                        "opcodes": dict(sorted(collections.Counter(ops).items()))}
+    return counts
+
+
+def _check_k2_all(K, g) -> dict:
+    """K2 at every case of ``K2_CASES``; the numbers of the timed one."""
+    results = {}
+    for label, shape, offset in K2_CASES:
+        results.update(_check_k2(K, label, shape, g, timed=label == "flagship_train",
+                                 offset=offset))
+    return results
 
 
 def _post(url: str, body: bytes):
@@ -1347,6 +1422,9 @@ def phase_train(name: str) -> dict:
         # K3's train form takes its draws by value: no pinned copy a step
         pinned = t["kernels"]["profile"].get("pinned_h2d", 0)
         check(pinned == 0, f"{name} {dt} train step made {pinned} pinned host-to-card copies")
+        # K2's forward is one kernel a step (a window may lose a record)
+        k2 = t["kernels"]["profile"].get("our_kernels", {}).get("si_sums_kernel", [0.0, 0])[1]
+        check(k2 <= 1, f"{name} {dt} train step launched K2's forward kernel {k2} times")
     del model, step16
 
     # (c) the training CLI, end to end, on generated data
@@ -1409,8 +1487,17 @@ def main() -> int:
 
         emit({"k4_backward": _check_k4_backward_all(K, torch.Generator().manual_seed(SEED))})
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only one is "
-          "--k4-backward-only")
+    if sys.argv[1:] == ["--k2-only"]:
+        # K2 alone, at every case: the quick run that compares two trees in
+        # turns on one card
+        from mde_tpu_torch.ops import kernels as K
+
+        g = torch.Generator().manual_seed(SEED)
+        emit({"k2": _check_k2_all(K, g)})
+        emit({"k2_sass": _sass_counts(K, "si_")})
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
+          "--k4-backward-only and --k2-only")
     kernels = phase_kernels()
     by_path = {}
     for name in ("flagship", "da2"):

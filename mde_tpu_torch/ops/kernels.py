@@ -16,7 +16,11 @@ a plain C interface, loaded with ``ctypes``:
   will follow, and its stored output; each probability formed once in
   register tiles, sums in a fixed order, no atomics);
 - ``si_loss_sums`` (csrc/si_loss.cu) replaces ``si_loss_sums``
-  (pallas_kernels.py:56-144), forward and backward;
+  (pallas_kernels.py:56-144), forward and backward; the forward is one
+  launch (a block a tile of a sample, 16-byte loads where the rows allow
+  them; the block that finishes a sample's last tile adds its tiles'
+  partials in a fixed order) into one allocation (``si_loss_sums_plan``
+  picks the path and the tiles from the shape and the SM count);
 - ``preprocess_u8`` (csrc/preprocess.cu) replaces ``normalize_u8_fused``
   (pallas_kernels.py:233-260), fused with the half-pixel bilinear resize that
   precedes it in ``preprocess_eval`` (a band of output rows a block over
@@ -59,6 +63,7 @@ rebuilt. Nothing is imported or compiled when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -66,6 +71,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -159,7 +165,7 @@ def load():
             for name in ("mde_window_attention_backward_f32", "mde_window_attention_backward_bf16"):
                 getattr(lib, name).argtypes = [p] * 10 + [i, i, i, i, i, f, p]
                 getattr(lib, name).restype = i
-            lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, p, i, ll, f, p]
+            lib.mde_si_loss_sums_f32.argtypes = [p, p, p, p, i, ll, i, i, f, p]
             lib.mde_si_loss_sums_f32.restype = i
             lib.mde_si_loss_backward_f32.argtypes = [p, p, p, p, p, p, i, ll, f, p]
             lib.mde_si_loss_backward_f32.restype = i
@@ -442,21 +448,86 @@ def _si_flat(pred, target, name: str):
     return pred.reshape(b, -1).contiguous(), target.reshape(b, -1).contiguous()
 
 
+# The forward's launch (csrc/si_loss.cu): blocks of SI_SUM_THREADS,
+# SI_BLOCKS_PER_SM of them an SM (its launch bounds: at most 42 registers a
+# thread); a sample cut into tiles of at least SI_TILE_UNITS units, as many
+# as fill one such wave across the batch.
+SI_SUM_THREADS = 512
+SI_BLOCKS_PER_SM = 3
+SI_TILE_UNITS = 512
+
+
+class SIPlan(NamedTuple):
+    """How ``si_loss_sums`` launches for a (batch, n) pair: 16-byte loads
+    (``vector``) or 4-byte ones, a sample cut into ``units`` (float4s or
+    floats) and into ``tiles`` blocks, ``blocks`` in all."""
+
+    vector: bool
+    units: int
+    tiles: int
+    blocks: int
+
+    def shares(self) -> list:
+        """The [begin, end) units of each tile of a sample, as the kernel
+        computes them: units // tiles, and one more for the first
+        units % tiles tiles."""
+        chunk, extra = divmod(self.units, self.tiles)
+        return [(r * chunk + min(r, extra), (r + 1) * chunk + min(r + 1, extra))
+                for r in range(self.tiles)]
+
+
+@functools.lru_cache(maxsize=64)
+def si_loss_sums_plan(batch: int, n: int, aligned: bool, sms: int) -> SIPlan:
+    """The launch for ``batch`` samples of ``n`` floats whose rows start on
+    16 bytes where ``aligned``, on a card of ``sms`` SMs: the vector path
+    needs n % 4 == 0 too (every row then starts on 16 bytes); the tiles of
+    all samples fill one wave of SI_BLOCKS_PER_SM blocks an SM, each of at
+    least SI_TILE_UNITS units, one a sample at the least."""
+    vector = aligned and n % 4 == 0
+    units = n // 4 if vector else n
+    wave = sms * SI_BLOCKS_PER_SM
+    tiles = max(1, min(wave // batch, -(-units // SI_TILE_UNITS)))
+    return SIPlan(vector, units, tiles, tiles * batch)
+
+
+_sm_counts = {}
+_si_counters = {}
+
+
+def _si_counter(device: torch.device, stream: int, batch: int) -> torch.Tensor:
+    """The forward's (batch,) uint32 tile counters for this device and stream
+    (kept as int32), zero between launches: the kernel's last tile of a sample
+    sets its counter back to 0. One buffer a stream, so that launches on two
+    streams never share a counter."""
+    key = (device.index, stream)
+    buf = _si_counters.get(key)
+    if buf is None or buf.numel() < batch:
+        buf = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+        _si_counters[key] = buf
+    return buf
+
+
 def _si_loss_sums_forward(pred, target, eps: float):
     if pred.device.type == "cpu":
         return si_loss_sums_plain(pred, target, eps)
     p, t = _si_flat(pred, target, "si_loss_sums")
     b, n = p.shape
-    chunks = -(-n // 2048)
-    partial = torch.empty((2, b, chunks), dtype=torch.float32, device=p.device)
-    s1 = torch.empty(b, dtype=torch.float32, device=p.device)
-    s2 = torch.empty_like(s1)
+    dev = p.device
+    sms = _sm_counts.get(dev.index)
+    if sms is None:
+        sms = _sm_counts[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = si_loss_sums_plan(b, n, p.data_ptr() % 16 == 0 and t.data_ptr() % 16 == 0, sms)
+    # the (2, B) sums, then the tiles' partials
+    out = torch.empty(2 * b * (1 + plan.tiles), dtype=torch.float32, device=dev)
+    stream = _stream(p)
     lib = load()
-    err = lib.mde_si_loss_sums_f32(p.data_ptr(), t.data_ptr(), partial.data_ptr(),
-                                   s1.data_ptr(), s2.data_ptr(), b, n, eps, _stream(p))
+    err = lib.mde_si_loss_sums_f32(p.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                   _si_counter(dev, stream, b).data_ptr(), b, n, plan.tiles,
+                                   int(plan.vector), eps, stream)
     _check(lib, err, "si_loss_sums")
     si_loss_sums.launches += 1
-    return s1, s2
+    sums = out[:2 * b].view(2, b)
+    return sums[0], sums[1]
 
 
 def _si_loss_sums_backward(pred, target, g1, g2, eps: float, need_target: bool):

@@ -216,9 +216,20 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
     device = _device(model)
     accum = int(cfg.framework.get("grad_accum_steps", 1))
     bs = getattr(train_loader, "batch_size", None)
-    if accum > 1 and bs is not None and bs % accum:
-        raise ValueError(f"training.batch_size {bs} is not divisible by "
-                         f"framework.grad_accum_steps {accum}")
+    if accum > 1 and bs is not None:
+        # checked now, as mde_tpu's fit does: the accumulated step would
+        # raise on such a batch only at the end of the first epoch
+        if bs % accum:
+            raise ValueError(f"training.batch_size {bs} is not divisible by "
+                             f"framework.grad_accum_steps {accum}")
+        n = getattr(train_loader, "num_samples", None)
+        if n is not None and not getattr(train_loader, "drop_last", False):
+            rem = n % bs
+            if rem and rem % accum:
+                raise ValueError(
+                    f"grad_accum_steps={accum} with drop_last=False would yield a final "
+                    f"batch of {rem} samples (not divisible by accum_steps) mid-epoch; set "
+                    "framework.drop_last: true or adjust the batch size")
     train_step = make_train_step(model, cfg, optimizer, accum_steps=accum)
     eval_step = make_eval_step(model, cfg)
     model_name = cfg.experiment.model_name

@@ -6,6 +6,8 @@
   through ~60 layers and seven resizes).
 - ``fit``'s early stopping, best checkpoint and resume seeding against JAX's
   ``fit`` with the same scripted losses: the same printed decisions.
+- ``fit``'s check of a drop_last=False loader's remainder batch against
+  ``grad_accum_steps``: the same ValueError as JAX's ``fit``, before any step.
 - The training CLI on generated data (CPU, 60x80 images at a 64x96 input):
   the checkpoint holds the reference's training payload, predictions are
   written, and a resumed run restores the optimizer and early-stopping state.
@@ -146,6 +148,76 @@ def test_fit_early_stopping_matches_jax(tmp_path, monkeypatch, capsys, resume):
     assert got == want and any(line.startswith("Early stopping") for line in got)
     assert len(history["val_loss"]) == sum(line.startswith("Val Loss") for line in got)
     assert history["n_train"] == [4] * len(history["val_loss"])
+
+
+class _Loader(list):
+    """A loader of scripted batches with the host loaders' batch_size,
+    num_samples and drop_last; it records whether it was iterated."""
+
+    def __init__(self, batches, batch_size, num_samples, drop_last):
+        super().__init__(batches)
+        self.batch_size, self.num_samples, self.drop_last = batch_size, num_samples, drop_last
+        self.iterated = False
+
+    def __iter__(self):
+        self.iterated = True
+        return super().__iter__()
+
+
+# 10 samples in batches of 4 leave a remainder of 2: not divisible by 4
+# accumulation steps unless the loader drops it, divisible by 2.
+@pytest.mark.parametrize("accum,drop_last,raises", [(4, False, True), (4, True, False),
+                                                    (2, False, False)])
+def test_fit_checks_the_remainder_batch_as_jax_does(tmp_path, monkeypatch, accum, drop_last,
+                                                    raises):
+    """Both fits refuse, before any step, a drop_last=False loader whose last
+    batch is not divisible by grad_accum_steps, with the same message; a
+    dropped or divisible remainder trains."""
+    batch = {"rgb": np.zeros((4, 4, 4, 3), np.uint8), "depth": np.ones((4, 4, 4), np.float32)}
+    cfg, jcfg = config.defaults(), jax_config.defaults()
+    for c in (cfg, jcfg):
+        c.training.n_epoch = 1
+        c.framework.grad_accum_steps = accum
+
+    def loader():
+        return _Loader([batch] * (2 if drop_last else 3), 4, 8 if drop_last else 10, drop_last)
+
+    built = []
+
+    def counted(make):
+        def wrapped(*args, **kwargs):
+            built.append(make)
+            return make(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(jax_trainer, "make_train_step", counted(_scripted(jnp.asarray)[0]))
+    monkeypatch.setattr(jax_trainer, "make_eval_step", _scripted(jnp.asarray)[1])
+    monkeypatch.setattr(trainer, "make_train_step", counted(_scripted(torch.tensor)[0]))
+    monkeypatch.setattr(trainer, "make_eval_step", _scripted(torch.tensor)[1])
+    params = {"w": jnp.zeros(2)}
+    tx = optax.sgd(0.1)
+    state = jax_trainer.TrainState(step=jnp.asarray(0), params=params, batch_stats={},
+                                   opt_state=tx.init(params), tx=tx)
+    model = torch.nn.Linear(2, 2)
+    runs = {"jax": lambda train: jax_trainer.fit(None, jcfg, state, train, [batch],
+                                                 str(tmp_path / "jax"))[1],
+            "port": lambda train: trainer.fit(model, cfg, torch.optim.SGD(model.parameters(),
+                                                                          lr=0.1),
+                                              train, [batch], str(tmp_path / "port"))}
+    messages = {}
+    for name, run in runs.items():
+        train = loader()
+        if raises:
+            with pytest.raises(ValueError, match="framework.drop_last") as err:
+                run(train)
+            messages[name] = str(err.value)
+            assert not train.iterated and not built, name
+        else:
+            history = run(train)
+            assert train.iterated and history["n_train"] == [4 * len(train)], name
+    assert messages.get("jax") == messages.get("port")
+    if raises:
+        assert "final batch of 2 samples" in messages["port"]
 
 
 # ---------------------------------------------------------------------------

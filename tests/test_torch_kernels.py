@@ -255,6 +255,42 @@ def test_window_attention_bf16_plain_is_float32_rounded_once():
         assert torch.equal(K.window_attention_plain(*wins, heads, mask), got)
 
 
+# (batch, n, rows on 16 bytes) -> (vector path, units a sample, tiles a
+# sample) on an H100's 132 SMs (one wave: 396 blocks of 512 threads): the
+# flagship and DA-V2 train steps, rows off 16 bytes, n not a multiple of 4,
+# three tiles, a large batch (a tile a sample), an eval remainder of one
+# sample, one element a sample.
+SI_PLANS = {
+    "flagship": ((4, 448 * 576, True), (True, 64512, 99)),
+    "da2": ((4, 448 * 588, True), (True, 65856, 99)),
+    "misaligned": ((4, 448 * 576, False), (False, 258048, 99)),
+    "odd_n": ((3, 1001, True), (False, 1001, 2)),
+    "three_tiles": ((2, 5000, True), (True, 1250, 3)),
+    "large_batch": ((300, 9999, True), (False, 9999, 1)),
+    "one_sample": ((1, 426 * 560, True), (True, 59640, 117)),
+    "one_element": ((65535, 1, True), (False, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SI_PLANS))
+def test_si_loss_sums_plan_picks_the_path_and_covers_each_element_once(case):
+    """K2's launch plan from (B, n, alignment) and the SM count alone:
+    16-byte loads only for rows on 16 bytes with n % 4 == 0, tiles that fill
+    one wave without going below SI_TILE_UNITS units, and the tiles' shares
+    of a sample covering every unit once, in order."""
+    (batch, n, aligned), (vector, units, tiles) = SI_PLANS[case]
+    plan = K.si_loss_sums_plan(batch, n, aligned, 132)
+    assert (plan.vector, plan.units, plan.tiles) == (vector, units, tiles)
+    assert plan.blocks == batch * tiles <= max(batch, 132 * K.SI_BLOCKS_PER_SM)
+    assert plan.units * (4 if plan.vector else 1) == n
+    shares = plan.shares()
+    assert len(shares) == plan.tiles and shares[0][0] == 0 and shares[-1][1] == plan.units
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [end - begin for begin, end in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert plan.tiles == 1 or min(sizes) >= K.SI_TILE_UNITS // 2
+
+
 def test_library_name_follows_the_si_loss_source(tmp_path, monkeypatch):
     for src in K.CSRC_DIR.glob("*.cu"):
         (tmp_path / src.name).write_bytes(src.read_bytes())
