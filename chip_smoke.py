@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving, training, tool and augmentation
+paths on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
@@ -70,8 +71,28 @@ Phases, each printing JSON lines:
               attention block a step, and no softmax backward; the flagship's
               frozen DINOv2 launches none, and its steps launch K1's backward
               once per cross-attention a step and run no plain K1 recompute.
+  6. tools    for each model, inside train (c)'s directory (the working
+              directory changed there and back) on the checkpoint (c) wrote:
+              the evaluation tool (its printed metrics finite and equal to
+              evaluate() on the reloaded model, its trainable count the JAX
+              tool's), the prediction tool (four finite native-size .npy
+              equal to (c)'s, and a predictions.csv whose rows decode to
+              "%.2f" of their rounded values) and the visualisation tool on
+              two samples (its PNGs; where matplotlib is absent, its arrays
+              and a line that says so), each timed; they launch K1's, K3's
+              eval form's, K4's and K2's forwards and no backward;
+  7. augment  the flagship's PairAug path at batch 4: (a) the pipeline on
+              the card against the CPU with the same draws and noise, with
+              the step's gates and with every stage on; (b) its CUDA-event
+              time, launches and copies; (c) three bf16 train steps with
+              augmentation: True, one K2 forward and backward a step, K1's
+              forward and backward, no K3 train form; (d) the augmented step
+              against the default one in turns with the port's StepTimer,
+              peak memory from device_memory_stats, and at most two pageable
+              host-to-card copies a step.
 Then a line with every kernel's numbers and its launches by path (a train
-path's are those of its checks (a), (b) and (c)), and last
+path's are those of its checks (a), (b) and (c); a tools path's those of its
+three tools), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -150,6 +171,24 @@ TOL_K1_STATS = 1e-5
 TOL_TRAIN_LOSS = 1e-4
 TOL_GRAD_GLOBAL, TOL_GRAD_SUBTREE = 0.15, 0.3
 TOL_BF16_LOSS = 2e-2  # bf16 step-0 loss vs the float32 one, relative
+# The evaluation tool's printed metrics against evaluate() on the reloaded
+# checkpoint (the same float32 computation), relative.
+TOL_TOOL_METRICS = 1e-5
+# The prediction tool's .npy against train (c)'s predictions of the same
+# weights, max-abs in depth units: the same float32 forward, but (c) runs
+# the flagship's transposed convolution with cuDNN's default algorithm,
+# whose order of summation changes run to run, and the tool the
+# deterministic one.
+TOL_TOOL_PRED = 1e-4
+# PairAug on the card against the CPU, same draws and noise: normalised RGB
+# max-abs (float32 rounding of the depth resize, the contrast mean, the
+# blur taps' exp, carried through the warp, up to 1/0.225 by the
+# normalisation), and depth max-abs over its largest value.
+TOL_PAIRAUG = 1e-4
+TOL_PAIRAUG_DEPTH = 1e-5
+# Pageable host-to-card copies an augmented step may make: the draws' one
+# (B, 14) copy and K1's key-validity row.
+MAX_PAGEABLE_AUGMENT = 2
 TRAIN_SHAPE = (4, 426, 560)  # batch, native height and width
 TOL_SERVED = 1e-4  # served reply vs plain-version predict step on the card
 # The same, relative to the reply's spread (max - min): random weights give
@@ -1030,6 +1069,12 @@ PATH_KERNELS = {
     "da2_train": ("preprocess_u8", "preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward",
                   "flash_attention", "flash_attention_bf16", "flash_attention_backward",
                   "flash_attention_backward_bf16"),
+    # the evaluation, prediction and visualisation tools: forwards only
+    "flagship_tools": ("window_attention", "preprocess_u8", "si_loss_sums", "flash_attention"),
+    "da2_tools": ("preprocess_u8", "si_loss_sums", "flash_attention"),
+    # PairAug normalises after its warp: neither form of K3 runs
+    "flagship_augment": ("window_attention_bf16", "window_attention_backward_bf16",
+                         "si_loss_sums", "si_loss_sums_backward", "flash_attention_bf16"),
 }
 
 
@@ -1432,9 +1477,9 @@ def phase_train(name: str) -> dict:
         data = os.path.join(tmp, "data")
         synthetic.generate(data, n_train=16, n_test=4, size=TRAIN_SHAPE[1:], seed=SEED)
         results, preds = os.path.join(tmp, "results"), os.path.join(tmp, "predictions")
-        sets = ("training.n_epoch=2", f"paths.results_dir={results}",
-                f"paths.predictions_dir={preds}", "experiment.wandb_disable=true")
-        sets = (DA2_SETS if name == "da2" else ()) + sets
+        base_sets = ("training.n_epoch=2", f"paths.results_dir={results}",
+                     f"paths.predictions_dir={preds}", "experiment.wandb_disable=true")
+        sets = (DA2_SETS if name == "da2" else ()) + base_sets
         argv = ["--device", "cuda", "--data-dir", data] + [a for x in sets for a in ("--set", x)]
         reset_counts()
         t0 = time.perf_counter()
@@ -1467,10 +1512,298 @@ def phase_train(name: str) -> dict:
         check(launches["si_loss_sums_backward"] % si_bwd_per_step == 0,
               f"K2 backward launches {launches['si_loss_sums_backward']} are not whole steps")
         check_step_launches(launches, launches["si_loss_sums_backward"] // si_bwd_per_step, "c")
+        tools = phase_tools(name, tmp, base_sets + (f"paths.data_dir={data}",),
+                            dict(zip(files, arrays)))
     # The path's launches: (a), (b) and (c), each counted from zero.
     total = {k: launches_a[k] + launches_b[k] + launches[k] for k in launches}
     check_path_launches(path, total, f"during {path}")
-    return total
+    return {path: total, f"{name}_tools": tools}
+
+
+def _trainable_count(model) -> int:
+    """Trainable values as the JAX tool counts them: ``requires_grad``, outside
+    the frozen top-level ``dinov2``, and not one of the model's dead keys
+    (the reference grammar's modules the forward never reads)."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if p.requires_grad and n.split(".", 1)[0] != "dinov2"
+               and not n.startswith(model.DEAD_KEY_PREFIXES))
+
+
+def phase_tools(name: str, tmp: str, sets: tuple, c_predictions: dict) -> dict:
+    """The evaluation, prediction and visualisation tools as a user runs them
+    after training: from train (c)'s directory (the working directory is
+    changed there and back), on the checkpoint (c) wrote, with (c)'s
+    ``--set``s. Their launches are the path's; the checks against
+    ``evaluate()`` and against (c)'s predictions come after the counts are
+    read. The tools turn cuDNN's deterministic algorithms on, so the
+    comparison with ``evaluate()`` runs under the same setting; the phases
+    after this one get cuDNN's setting back as they found it.
+    """
+    saved = torch.backends.cudnn.deterministic
+    try:
+        return _run_tools(name, tmp, sets, c_predictions)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _run_tools(name: str, tmp: str, sets: tuple, c_predictions: dict) -> dict:
+    import base64
+    import contextlib
+    import csv
+    import importlib.util
+    import zlib
+
+    from mde_tpu_torch.data.dataset import DepthDataset
+    from mde_tpu_torch.data.loader import HostLoader
+    from mde_tpu_torch.tools import evaluation, generate_predictions, visualize
+    from mde_tpu_torch.tools.common import bootstrap_model, resolve_paths
+    from mde_tpu_torch.train.checkpoint import checkpoint_path
+    from mde_tpu_torch.train.trainer import evaluate, trainable_parameters
+
+    path = f"{name}_tools"
+    tool_preds = os.path.join(tmp, "predictions_tool")
+    viz_dir = os.path.join(tmp, "visualization")
+    argv = ["--device", "cuda"] + [a for x in (DA2_SETS if name == "da2" else ()) + sets
+                                   + (f"paths.predictions_dir={tool_preds}",)
+                                   for a in ("--set", x)]
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    cfg = model_cfg(name, *sets)
+    seconds = {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            metrics = evaluation.main(argv)
+        seconds["evaluation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = generate_predictions.main(argv)
+        seconds["generate_predictions"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if has_matplotlib:
+            drawn = visualize.main(argv + ["--n-samples", "2", "--output-dir", viz_dir])
+            maps = None
+        else:
+            # the tool's arrays without its figures: the one declared exception
+            print("visualize: the PNGs were not written because matplotlib is absent; "
+                  "its arrays were computed for two samples", flush=True)
+            model, _ = bootstrap_model(cfg, "cuda", checkpoint=checkpoint_path(
+                cfg.paths.results_dir, cfg.experiment.model_name))
+            paths = resolve_paths(cfg)
+            loader = HostLoader(DepthDataset(paths["train_dir"], paths["train_list"]),
+                                indices=range(2), batch_size=1, num_workers=2, device="cuda")
+            maps = [visualize.sample_maps(model, cfg, b["rgb"], b["depth"]) for b in loader]
+            drawn = len(maps)
+            del model
+        seconds["visualize"] = time.perf_counter() - t0
+        launches = read_counts()
+        csv_path = os.path.join(tmp, "predictions.csv")
+        with open(csv_path, newline="") as f:
+            rows = list(csv.reader(f))
+    finally:
+        os.chdir(cwd)
+    out = {"phase": "tools", "model": name, "seconds": seconds, "launches": launches,
+           "matplotlib": has_matplotlib}
+    print(printed.getvalue(), end="", flush=True)
+    check_path_launches(path, launches, f"while {path} ran")
+
+    # evaluation: finite metrics equal to evaluate() on the reloaded model,
+    # and the JAX tool's trainable count
+    lines = dict(line.rsplit(": ", 1) for line in printed.getvalue().splitlines()
+                 if ": " in line)
+    count = int(lines["Number of trainable parameters in the model"])
+    model, _ = bootstrap_model(cfg, "cuda", checkpoint=checkpoint_path(
+        cfg.paths.results_dir, cfg.experiment.model_name))
+    paths = resolve_paths(cfg)
+    loader = HostLoader(DepthDataset(paths["train_dir"], paths["train_list"]),
+                        batch_size=int(cfg.training.batch_size), shuffle=False,
+                        num_workers=int(cfg.framework.num_workers), device="cuda")
+    want = evaluate(model, cfg, loader, n_samples=int(cfg.framework.eval_n_samples))
+    base = float(cfg.framework.eval_base_thres)
+    keys = {"si_rmse": "Average Scale-Invariant Loss", "abs_rel": "Average Absolute Relative Error",
+            **{f"delta_{j}": f"Average Delta {base**j} Threshold"
+               for j in range(1, int(cfg.framework.eval_n_delta) + 1)}}
+    got = {k: float(lines[label]) for k, label in keys.items()}
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in keys}
+    out["evaluation"] = {"printed": got, "evaluate": want, "rel": rel, "trainable": count,
+                         "trainable_parameters": sum(p.numel() for p in trainable_parameters(model)),
+                         "trainable_live": _trainable_count(model)}
+    check(all(np.isfinite(v) for v in got.values()), f"evaluation tool printed {got}")
+    check(got == {k: metrics[k] for k in keys}, "the evaluation tool printed other numbers "
+          "than it returned")
+    check(max(rel.values()) <= TOL_TOOL_METRICS,
+          f"evaluation tool vs evaluate(): rel {rel} > {TOL_TOOL_METRICS}")
+    check(count == _trainable_count(model),
+          f"evaluation tool counted {count} trainable values, want {_trainable_count(model)}")
+    del model
+
+    # prediction: (c)'s files and values, and the CSV's rows decode to them
+    files = sorted(os.listdir(tool_preds))
+    arrays = {f: np.load(os.path.join(tool_preds, f)) for f in files}
+    check(written == 4 and files == sorted(c_predictions),
+          f"prediction tool wrote {written}: {files}, want {sorted(c_predictions)}")
+    check(all(a.shape == TRAIN_SHAPE[1:] and a.dtype == np.float32 and np.isfinite(a).all()
+              for a in arrays.values()), f"predictions {[(f, a.shape) for f, a in arrays.items()]}")
+    pred_err = max(float(np.abs(arrays[f] - c_predictions[f]).max()) for f in files)
+    check(pred_err <= TOL_TOOL_PRED,
+          f"prediction tool vs train (c)'s predictions: max-abs {pred_err} > {TOL_TOOL_PRED}")
+    check(rows[0] == ["id", "Depths"] and len(rows) == 5, f"predictions.csv rows {len(rows)}")
+    for (file_id, blob), f in zip(rows[1:], files):
+        text = zlib.decompress(base64.b64decode(blob)).decode("utf-8")
+        check(file_id == os.path.splitext(f)[0]
+              and text == ",".join(f"{x:.2f}" for x in np.round(arrays[f].flatten(), 2)),
+              f"predictions.csv row {file_id} does not decode to {f}")
+    out["generate_predictions"] = {"files": files, "max_abs_vs_c": pred_err,
+                                   "csv_rows": len(rows) - 1}
+
+    # visualisation: six PNGs with the reference's names, or the arrays
+    model_name = cfg.experiment.model_name
+    if has_matplotlib:
+        figures = sorted(os.listdir(os.path.join(viz_dir, "figures")))
+        want_figs = sorted(f"{i:06d}_{suffix}.png" for i in range(2) for suffix in
+                           ("gtd", f"{model_name}_pred", f"{model_name}_lmap"))
+        check(drawn == 2 and figures == want_figs, f"visualize wrote {figures}")
+        out["visualize"] = {"figures": figures}
+    else:
+        input_size = tuple(int(s_) for s_ in cfg.framework.input_size)
+        check(drawn == 2 and all(m.shape == input_size and np.isfinite(m).all()
+                                 for arrs in maps for m in arrs), "visualize's arrays")
+        out["visualize"] = {"figures": "not written: matplotlib is absent", "arrays": drawn}
+    emit(out)
+    return launches
+
+
+def phase_augment() -> dict:
+    """The flagship's PairAug path (``augmentation: True``) at batch 4:
+    (a) ``pairaug_apply`` on the card against the CPU with the same draws and
+    noise, with the step's gates and with every stage on; (b) the pipeline's
+    CUDA-event time, launches and copies; (c) three bf16 train steps, the
+    path's launches; (d) the augmented step against the default one, timed
+    in turns with ``StepTimer``, peak memory from ``device_memory_stats``
+    and each step's pageable host-to-card copies from the profiler."""
+    from mde_tpu_torch.data import synthetic
+    from mde_tpu_torch.data.transforms import pairaug_apply, pairaug_draws, preprocess_pairaug
+    from mde_tpu_torch.models.midas_semantics import CrossAttention
+    from mde_tpu_torch.ops.image import standard_normal
+    from mde_tpu_torch.train.profiling import StepTimer, device_memory_stats
+    from mde_tpu_torch.train.trainer import make_optimizer, make_train_step, step_generator
+
+    path = "flagship_augment"
+    cfg = model_cfg("flagship", "augmentation=true")  # bf16 compute, the default
+    cfg_default = model_cfg("flagship")
+    size = tuple(int(s_) for s_ in cfg.framework.input_size)
+    b = TRAIN_SHAPE[0]
+    rng = np.random.default_rng(SEED)
+    samples = [synthetic.make_sample(rng, *TRAIN_SHAPE[1:]) for _ in range(b)]
+    rgb_u8 = torch.from_numpy(np.stack([s_[0] for s_ in samples])).cuda()
+    depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
+    out = {"phase": "augment", "model": "flagship", "batch": b, "input_size": list(size)}
+
+    # (a) the card against the CPU on the same draws and noise
+    draws = pairaug_draws(b, step_generator(SEED, 0, 0))
+    on = torch.ones(b)
+    cases = {"step_draws": draws,
+             "every_stage": draws._replace(jitter_gate=on, noise_gate=on, blur_gate=on)}
+    out["a_card_vs_cpu"] = {}
+    for label, d in cases.items():
+        noise = standard_normal((b, 3, *size), d.noise_seed, "cpu")
+        rgb_c, depth_c = pairaug_apply(rgb_u8.cpu(), depth_raw.cpu(), d, size, noise=noise)
+        rgb_g, depth_g = pairaug_apply(rgb_u8, depth_raw, d, size, noise=noise.cuda())
+        err = (rgb_g.cpu() - rgb_c).abs().max().item()
+        derr = ((depth_g.cpu() - depth_c).abs().max() / depth_c.abs().max()).item()
+        gates = {k: getattr(d, k).tolist() for k in ("flip", "rot_gate", "jitter_gate",
+                                                     "noise_gate", "blur_gate")}
+        out["a_card_vs_cpu"][label] = {"rgb_max_abs": err, "depth_rel": derr, "gates": gates}
+        check(torch.isfinite(rgb_g).all().item() and torch.isfinite(depth_g).all().item(),
+              f"pairaug ({label}) on the card is not finite")
+        check(err <= TOL_PAIRAUG and derr <= TOL_PAIRAUG_DEPTH,
+              f"pairaug ({label}) card vs CPU: rgb max-abs {err} > {TOL_PAIRAUG} or depth "
+              f"rel {derr} > {TOL_PAIRAUG_DEPTH}")
+    card_noise = standard_normal((b, 3, *size), draws.noise_seed, "cuda")
+    out["a_card_noise"] = {"mean": card_noise.mean().item(), "std": card_noise.std().item()}
+    check(abs(out["a_card_noise"]["mean"]) < 0.01 and abs(out["a_card_noise"]["std"] - 1) < 0.01,
+          f"the card's noise is not N(0, 1): {out['a_card_noise']}")
+    emit({**out, "check": "a"})
+
+    # (b) the pipeline alone: the step's draws (as a step runs it) and every stage on
+    out["b_pipeline"] = {}
+    for label, fn in (
+            ("step_draws", lambda: preprocess_pairaug(rgb_u8, depth_raw, size,
+                                                      generator=step_generator(SEED, 0, 0))),
+            ("every_stage", lambda: pairaug_apply(rgb_u8, depth_raw, cases["every_stage"],
+                                                  size))):
+        ms = cuda_ms(fn, reps=20, warmup=3)
+        prof = _profile_step(fn, ms)
+        out["b_pipeline"][label] = {"ms": ms, "device_ms": prof.get("device_ms"),
+                                    "kernel_launches": prof.get("kernel_launches"),
+                                    "pageable_h2d": prof.get("pageable_h2d"),
+                                    "top": prof.get("top", [])[:6]}
+        check(prof.get("pageable_h2d", 0) <= 1,
+              f"pairaug ({label}) made {prof.get('pageable_h2d')} pageable copies, want 1")
+    emit({"phase": "augment", "check": "b", **out["b_pipeline"]})
+
+    # (c) three bf16 steps with augmentation: True, counted from zero
+    model = make_model("flagship", cfg, bias=2.0).cuda()
+    n_cross = sum(isinstance(m, CrossAttention) for m in model.modules())
+    optimizer = make_optimizer(model, cfg)
+    step = make_train_step(model, cfg, optimizer)
+    reset_counts()
+    timer = StepTimer(warmup=0)
+    losses = []
+    for i in range(3):
+        timer.start()
+        metrics = step(rgb_u8, depth_raw, step_generator(SEED, 0, i))
+        timer.stop(metrics)
+        losses.append(metrics["loss"].item())
+    launches = read_counts()
+    out["c_steps"] = {"losses": losses, "step_s": timer.times, "launches": launches}
+    emit({"phase": "augment", "check": "c", **out["c_steps"]})
+    check(all(np.isfinite(losses)), f"non-finite augmented losses {losses}")
+    want = {"si_loss_sums": 3, "si_loss_sums_backward": 3, "preprocess_u8_train": 0,
+            "window_attention_backward_bf16": 3 * n_cross}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{path}: launches {got}, want {want}")
+    check(k1_stats_launches() == 3 * n_cross,
+          f"{path}: K1 statistics written {k1_stats_launches()} times, want {3 * n_cross}")
+    check_path_launches(path, launches, f"during {path}")
+
+    # (d) augmented and default steps in turns on one optimizer: StepTimer
+    # (two warm-up steps each), peak memory, the profiler's copies a step
+    steps = {"augment": step, "default": make_train_step(model, cfg_default, optimizer)}
+    timers = {mode: StepTimer(warmup=2) for mode in steps}
+    gen = step_generator(SEED, 1, 0)
+    peaks = {}
+    for mode, fn in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            fn(rgb_u8, depth_raw, gen)
+        peaks[mode] = device_memory_stats()[0]["peak_bytes_in_use"] / 2**20
+    for mode in ("default", "augment", "augment", "default"):
+        for _ in range(4):
+            timers[mode].start()
+            timers[mode].stop(steps[mode](rgb_u8, depth_raw, gen))
+    summary = {mode: t.summary() for mode, t in timers.items()}
+    profiles = {mode: _profile_step(lambda fn=fn: fn(rgb_u8, depth_raw, gen),
+                                    summary[mode]["p50_s"] * 1e3) for mode, fn in steps.items()}
+    out["d_turns"] = {
+        "step_ms_p50": {m: s_["p50_s"] * 1e3 for m, s_ in summary.items()},
+        "augment_over_default": summary["augment"]["p50_s"] / summary["default"]["p50_s"],
+        "timer": summary, "peak_mib": peaks,
+        "pageable_h2d": {m: p.get("pageable_h2d") for m, p in profiles.items()},
+        "kernel_launches": {m: p.get("kernel_launches") for m, p in profiles.items()},
+        "device_ms": {m: p.get("device_ms") for m, p in profiles.items()},
+        "busy_share": {m: p.get("busy_share_of_step") for m, p in profiles.items()}}
+    emit({"phase": "augment", "check": "d", **out["d_turns"]})
+    pageable = profiles["augment"].get("pageable_h2d")
+    print(f"augment: {pageable} pageable host-to-card copies a step", flush=True)
+    check(pageable is not None and pageable <= MAX_PAGEABLE_AUGMENT,
+          f"the augmented step made {pageable} pageable copies, more than {MAX_PAGEABLE_AUGMENT}")
+    k2 = profiles["augment"].get("our_kernels", {}).get("si_sums_kernel", [0.0, 0])[1]
+    check(k2 <= 1, f"the augmented step launched K2's forward kernel {k2} times")
+    return launches
 
 
 def main() -> int:
@@ -1502,7 +1835,8 @@ def main() -> int:
     by_path = {}
     for name in ("flagship", "da2"):
         by_path[f"{name}_serve"] = phase_serve(name)
-        by_path[f"{name}_train"] = phase_train(name)
+        by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
+    by_path["flagship_augment"] = phase_augment()
     rows = []
     for name, source, replaces in (
             ("window_attention", K1_SOURCE, K1_REPLACES),

@@ -584,36 +584,36 @@ si_loss_sums.backward_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _bilinear_taps(in_size: int, out_size: int):
-    """Half-pixel bilinear taps of one axis, float32, as the JAX reference
-    computes them (mde_tpu/ops/resize.py::_interp_taps): the source coordinate
-    ``(o + 0.5) * in/out - 0.5`` is rounded after the multiply and after the
-    subtract, then clamped at 0. ``F.interpolate`` fuses the two into one
-    multiply-add, which moves a coordinate near 256 by an ulp and the
-    normalised output by up to 6e-5, so neither version uses it."""
-    o = np.arange(out_size, dtype=np.float32)
-    scale = np.float32(in_size) / np.float32(out_size)
-    src = np.maximum(np.float32(0.0), (o + np.float32(0.5)) * scale - np.float32(0.5))
-    i0 = np.minimum(src.astype(np.int64), in_size - 1)
-    i1 = np.minimum(i0 + 1, in_size - 1)
-    frac = (src - i0).astype(np.float32)
-    return i0, i1, frac
+def _bilinear_taps(in_size: int, out_size: int, device):
+    """Half-pixel bilinear taps of one axis on ``device``, float32, as the JAX
+    reference computes them (mde_tpu/ops/resize.py::_interp_taps): the source
+    coordinate ``(o + 0.5) * in/out - 0.5`` is rounded after the multiply and
+    after the subtract (each its own float32 operation), then clamped at 0.
+    ``F.interpolate`` fuses the two into one multiply-add, which moves a
+    coordinate near 256 by an ulp and the normalised output by up to 6e-5,
+    so neither version uses it. Made where they are used: no copy to the
+    card."""
+    scale = float(np.float32(in_size) / np.float32(out_size))
+    o = torch.arange(out_size, dtype=torch.float32, device=device)
+    src = torch.clamp((o + 0.5) * scale - 0.5, min=0.0)
+    i0 = torch.clamp(src.long(), max=in_size - 1)
+    i1 = torch.clamp(i0 + 1, max=in_size - 1)
+    return i0, i1, src - i0
 
 
 def resize_half_pixel(x: torch.Tensor, size) -> torch.Tensor:
     """Half-pixel bilinear resize of an NCHW float tensor with the JAX
     reference's taps (``_bilinear_taps``): gather the two taps of each axis
     and blend them, rows then columns."""
-    dev = x.device
     for axis, out_size in ((2, int(size[0])), (3, int(size[1]))):
         if x.shape[axis] == out_size:
             continue  # the identity in this convention (src == o)
-        i0, i1, frac = _bilinear_taps(x.shape[axis], out_size)
+        i0, i1, frac = _bilinear_taps(x.shape[axis], out_size, x.device)
         shape = [1, 1, 1, 1]
         shape[axis] = out_size
-        w1 = torch.from_numpy(frac).to(dev).view(shape)
-        a = x.index_select(axis, torch.from_numpy(i0).to(dev))
-        b = x.index_select(axis, torch.from_numpy(i1).to(dev))
+        w1 = frac.view(shape)
+        a = x.index_select(axis, i0)
+        b = x.index_select(axis, i1)
         x = a * (1.0 - w1) + b * w1
     return x
 

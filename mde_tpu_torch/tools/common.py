@@ -29,6 +29,16 @@ def set_float32_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def set_deterministic_convolutions() -> None:
+    """cuDNN's deterministic algorithms only: the flagship's transposed
+    convolution (``cross_attention.spatial_upsample``) otherwise takes one
+    that sums in a different order from run to run, so that evaluating one
+    checkpoint twice could print other metrics. The evaluation, prediction
+    and visualisation tools call it; serving and training keep cuDNN's
+    default."""
+    torch.backends.cudnn.deterministic = True
+
+
 def _override(cfg, item: str) -> None:
     """Apply one ``--set dotted.key=value``; the value is read as JSON when it
     parses (numbers, booleans, null, lists), else kept as a string."""
@@ -64,6 +74,15 @@ def parse_config(description: str, extra=None, argv=None):
     for item in args.set:
         _override(cfg, item)
     return cfg, args
+
+
+def tool_device(name: str) -> torch.device:
+    """The ``--device`` of an entry point; ``cuda`` without a visible card
+    exits rather than running on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is visible")
+    return device
 
 
 def resolve_paths(cfg):
@@ -111,9 +130,10 @@ def live_missing_keys(model, report: dict) -> list[str]:
             and not k.startswith(model.DEAD_KEY_PREFIXES)]
 
 
-def bootstrap_model(cfg, device="cpu", checkpoint: Optional[str] = None):
+def bootstrap_model(cfg, device, checkpoint: Optional[str] = None):
     """Build the model with weights from ``cfg.framework.seed``, then load
-    ``checkpoint`` when it exists. Returns (model, load report or None)."""
+    ``checkpoint`` when it exists, and move it to ``device`` (no default:
+    every caller names one). Returns (model, load report or None)."""
     gen = torch.Generator().manual_seed(int(cfg.framework.seed))
     model = build_model(cfg.model, device="cpu", generator=gen)
     report = None

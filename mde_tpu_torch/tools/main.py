@@ -26,16 +26,14 @@ from ..train.checkpoint import checkpoint_path, load_state_dict, load_training_c
 from ..train.logging import ExperimentLogger
 from ..train.trainer import evaluate_full_suite, fit, generate_test_predictions, make_optimizer
 from .common import (bootstrap_model, build_loaders, parse_config, resolve_paths,
-                     set_float32_precision)
+                     set_float32_precision, tool_device)
 
 
 def main(argv=None) -> dict:
     """Run the training flow; returns ``fit``'s history."""
     cfg, args = parse_config("Train a depth model (PyTorch port)", argv=argv)
     set_float32_precision()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is visible")
+    device = tool_device(args.device)
     paths = resolve_paths(cfg)
     os.makedirs(paths["results_dir"], exist_ok=True)
     os.makedirs(paths["predictions_dir"], exist_ok=True)

@@ -5,8 +5,10 @@ mde_tpu/train/trainer.py).
   over the trainable parameters; the frozen DINOv2 subtree is left out, so
   it gets neither an update nor weight decay.
 - ``forward_backward`` and ``make_train_step``: uint8 RGB and raw depth ->
-  ``preprocess_train`` -> forward in train mode -> ``combined_loss`` ->
-  backward -> one AdamW step, with gradient accumulation over microbatches.
+  the config's train pipeline (``preprocess_train``, or
+  ``preprocess_pairaug`` with ``augmentation: True``) -> forward in train
+  mode -> ``combined_loss`` -> backward -> one AdamW step, with gradient
+  accumulation over microbatches.
 - ``make_eval_step``, ``make_metric_step``, ``make_predict_step``: eval mode
   through ``preprocess_eval`` (the K3 kernel on the card).
 - ``fit``, ``evaluate``, ``evaluate_full_suite``, ``generate_test_predictions``.

@@ -3,7 +3,9 @@
 The GPU machine has no JAX, and may lack PIL. A fresh interpreter with an
 import hook that refuses ``jax``, ``jaxlib``, ``flax``, ``optax``,
 ``mde_tpu``, ``PIL`` and ``triton`` imports every module of
-``mde_tpu_torch`` (Depth-Anything-V2 and K4's among them), builds DA-V2-S
+``mde_tpu_torch`` (Depth-Anything-V2, K4's, the evaluation, prediction, CSV
+and visualisation tools and the profiling helpers among them; matplotlib,
+which imports PIL, only when a figure is drawn), builds DA-V2-S
 through the factory and runs it on a small image, then writes a synthetic
 dataset and decodes it through the loader (the zlib PNG writer and reader,
 no PIL).
@@ -32,6 +34,10 @@ SCRIPT = textwrap.dedent('''
     for name in names:
         importlib.import_module(name)
     assert "mde_tpu_torch.models.depth_anything" in names
+    assert all(n in names for n in ("mde_tpu_torch.tools.visualize", "mde_tpu_torch.utils",
+                                    "mde_tpu_torch.tools.evaluation",
+                                    "mde_tpu_torch.train.profiling"))
+    assert "matplotlib" not in sys.modules
     import torch
     from mde_tpu_torch.core import config
     from mde_tpu_torch.models.factory import build_model
@@ -57,4 +63,4 @@ def test_port_imports_and_loads_data_without_jax_pil_or_triton():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
                           cwd=Path(__file__).resolve().parent.parent, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 26  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 42  # every module of the package was imported

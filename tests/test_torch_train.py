@@ -147,11 +147,6 @@ def test_preprocess_train_matches_jax_with_injected_draws(monkeypatch):
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-6)
 
 
-def test_augmentation_path_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="augmentation path"):
-        T.make_train_pipeline(True, SIZE)
-
-
 # ---------------------------------------------------------------------------
 # Optimizer
 # ---------------------------------------------------------------------------
