@@ -89,10 +89,21 @@ Phases, each printing JSON lines:
               forward and backward, no K3 train form; (d) the augmented step
               against the default one in turns with the port's StepTimer,
               peak memory from device_memory_stats, and at most two pageable
-              host-to-card copies a step.
+              host-to-card copies a step;
+  8. export   for each model, inside train (c)'s directory: the export CLI
+              writes an archive (flagship buckets 1-8 on (c)'s checkpoint,
+              DA-V2-S 1-2 on the serve phase's weights), with its seconds a
+              bucket and its MB beside the state_dict's; a fresh interpreter
+              loads it with no model code and predicts each bucket, held
+              against the live predict step with the same launches (K3 1,
+              K1 1, K4 12 a call; no plain version's operation); host ms in
+              turns against the live step; then build_service_from_exported
+              serves it over HTTP to concurrent clients. Before the models,
+              op_dispatch: the host us of a call through each torch.library
+              op against its CUDA implementation called directly.
 Then a line with every kernel's numbers and its launches by path (a train
 path's are those of its checks (a), (b) and (c); a tools path's those of its
-three tools), and last
+three tools; an export path's one exported call a bucket), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -195,6 +206,29 @@ TOL_SERVED = 1e-4  # served reply vs plain-version predict step on the card
 # depths close to a constant, so an absolute bound alone would say little.
 TOL_SERVED_SPREAD = 1e-3
 N_CLIENTS, N_PER_CLIENT = 6, 4
+# The export phase: the archive's buckets (--max-batch), and its exported
+# predictor against the live predict step on the same checkpoint and batch,
+# max-abs in depth units and relative L2: the same kernels and operations,
+# but cuDNN's default algorithms may sum in another order from run to run
+# (the flagship's transposed convolution; TOL_TOOL_PRED's reason).
+EXPORT_MAX_BATCH = {"flagship": 8, "da2": 2}
+# Two epochs on generated data leave train (c)'s DA-V2-S map at its final
+# ReLU (all zeros on the card), where a comparison says nothing: the
+# export phase takes the serve phase's DA-V2-S weights instead (SEED's, the
+# final depth bias raised by 0.5) and the flagship's (c) checkpoint.
+EXPORT_SERVE_WEIGHTS = ("da2",)
+TOL_EXPORT = 1e-4
+TOL_EXPORT_REL_L2 = 1e-5
+# Each bucket's program launches what the live step launches, once a call:
+# K3's eval form, K1 float32 once a cross-attention, K4 float32 once a DINOv2
+# block; no other kernel.
+EXPORT_BUCKET_LAUNCHES = {
+    "flagship": {"preprocess_u8": 1, "window_attention": 1, "flash_attention": 12},
+    "da2": {"preprocess_u8": 1, "flash_attention": 12},
+}
+# The plain versions' signature operations (K4's softmax, K1's amax): an
+# exported program whose graph held a plain version would run one.
+PLAIN_OPS = ("aten::_softmax", "aten::softmax", "aten::amax")
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet): a
 # bound is the larger of bytes over the memory rate and operations over the
 # rate of the type they run in.
@@ -1021,6 +1055,38 @@ def _post(url: str, body: bytes):
         return resp.status, resp.read(), dict(resp.headers)
 
 
+def _post_concurrently(url: str, images: np.ndarray) -> tuple[list, float]:
+    """POST each image as .npy from N_CLIENTS threads started together, a
+    client every N_CLIENTS-th image; the replies in order and the seconds
+    taken. A client's error or a thread that did not finish fails."""
+    bodies = []
+    for img in images:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        bodies.append(buf.getvalue())
+    replies, errors = [None] * len(bodies), []
+    barrier = threading.Barrier(N_CLIENTS)
+
+    def client(c: int):
+        try:
+            barrier.wait(timeout=60)
+            for i in range(c, len(bodies), N_CLIENTS):
+                replies[i] = _post(url, bodies[i])
+        except Exception as e:  # reported below; a thread must not die silently
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(not errors, f"client errors: {errors}")
+    check(all(not t.is_alive() for t in threads), "a client thread did not finish")
+    return replies, seconds
+
+
 def _counters():
     from mde_tpu_torch.ops import kernels as K
 
@@ -1075,6 +1141,9 @@ PATH_KERNELS = {
     # PairAug normalises after its warp: neither form of K3 runs
     "flagship_augment": ("window_attention_bf16", "window_attention_backward_bf16",
                          "si_loss_sums", "si_loss_sums_backward", "flash_attention_bf16"),
+    # the exported predictor and the server over it: the serving path's kernels
+    "flagship_export": ("window_attention", "preprocess_u8", "flash_attention"),
+    "da2_export": ("preprocess_u8", "flash_attention"),
 }
 
 
@@ -1156,36 +1225,11 @@ def phase_serve(name: str) -> dict:
             rng = np.random.default_rng(SEED)
             h, w = service.native
             images = rng.integers(0, 256, (N_CLIENTS * N_PER_CLIENT, h, w, 3), dtype=np.uint8)
-            bodies = []
-            for img in images:
-                buf = io.BytesIO()
-                np.save(buf, img)
-                bodies.append(buf.getvalue())
-            replies = [None] * len(bodies)
-            errors = []
-            barrier = threading.Barrier(N_CLIENTS)
-
-            def client(c: int):
-                try:
-                    barrier.wait(timeout=60)
-                    for i in range(c, len(bodies), N_CLIENTS):
-                        replies[i] = _post(url, bodies[i])
-                except Exception as e:  # reported below; a thread must not die silently
-                    errors.append(f"client {c}: {type(e).__name__}: {e}")
-
             reset_counts()
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=client, args=(c,)) for c in range(N_CLIENTS)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            serve_s = time.perf_counter() - t0
+            replies, serve_s = _post_concurrently(url, images)
             launches = read_counts()
             stats_writes = k1_stats_launches()
-            check(not errors, f"client errors: {errors}")
             check(stats_writes == 0, f"{path} wrote K1 statistics {stats_writes} times")
-            check(all(not t.is_alive() for t in threads), "a client thread did not finish")
 
             depths, batch_sizes = [], []
             for status, body, headers in replies:
@@ -1514,10 +1558,11 @@ def phase_train(name: str) -> dict:
         check_step_launches(launches, launches["si_loss_sums_backward"] // si_bwd_per_step, "c")
         tools = phase_tools(name, tmp, base_sets + (f"paths.data_dir={data}",),
                             dict(zip(files, arrays)))
+        export = phase_export(name, tmp, sets, ckpt)
     # The path's launches: (a), (b) and (c), each counted from zero.
     total = {k: launches_a[k] + launches_b[k] + launches[k] for k in launches}
     check_path_launches(path, total, f"during {path}")
-    return {path: total, f"{name}_tools": tools}
+    return {path: total, f"{name}_tools": tools, f"{name}_export": export}
 
 
 def _trainable_count(model) -> int:
@@ -1806,6 +1851,254 @@ def phase_augment() -> dict:
     return launches
 
 
+def export_inputs(batch: int, native) -> np.ndarray:
+    """The export phase's uint8 batch of ``batch`` frames, from SEED."""
+    return np.random.default_rng(SEED + batch).integers(0, 256, (batch, *native, 3),
+                                                        dtype=np.uint8)
+
+
+# Run in a fresh interpreter: load the archive on the card with no model code,
+# predict once a bucket on ``export_inputs``, count each bucket's launches.
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np, torch
+import chip_smoke as S
+from mde_tpu_torch.train.export import load_exported
+# float32 with TF32 off, as the server over an archive sets it
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+p = load_exported(sys.argv[1], "cuda")
+load_s = time.perf_counter() - t0
+outs, counts, first_s = {}, {}, {}
+for b in p.batch_sizes:
+    x = S.export_inputs(b, p.meta["native_size"])
+    S.reset_counts()
+    t1 = time.perf_counter()
+    outs[str(b)] = p.predict(x)
+    first_s[str(b)] = time.perf_counter() - t1
+    counts[str(b)] = S.read_counts()
+np.savez(sys.argv[2], **outs)
+print(json.dumps({"load_s": load_s, "first_predict_s": first_s, "counts": counts,
+                  "models_imported": sorted(m for m in sys.modules
+                                            if m.startswith("mde_tpu_torch.models")),
+                  "jax_imported": sorted(m for m in sys.modules
+                                         if m.split(".")[0] in ("jax", "mde_tpu"))}))
+"""
+
+
+def _compare(got: np.ndarray, want: np.ndarray) -> dict:
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    return {"max_abs": err, "rel_l2": rel}
+
+
+def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
+    """The ahead-of-time path on train (c)'s checkpoint (DA-V2-S: the serve
+    phase's weights, EXPORT_SERVE_WEIGHTS): the export CLI writes the
+    archive (buckets up to EXPORT_MAX_BATCH); a fresh interpreter
+    loads it with no model code and predicts once a bucket; each bucket's
+    output and launches are held against the live predict step's on the same
+    checkpoint; the exported predictor and the live step are timed in turns
+    and profiled at bucket 1 (no plain version's operation may run); then
+    ``build_service_from_exported`` serves it over HTTP to concurrent clients,
+    its replies held against the live step. Returns the launches of one
+    exported call a bucket (the path's row in the kernels line)."""
+    import zipfile
+    from http.server import ThreadingHTTPServer
+
+    from mde_tpu_torch.tools import export_model
+    from mde_tpu_torch.tools.common import bootstrap_model
+    from mde_tpu_torch.tools.serve import build_service_from_exported, make_handler
+    from mde_tpu_torch.train.export import WEIGHTS_NAME, load_exported
+    from mde_tpu_torch.train.trainer import make_predict_step
+
+    path = f"{name}_export"
+    phase_t0 = time.perf_counter()
+    if name in EXPORT_SERVE_WEIGHTS:
+        from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+
+        results = os.path.join(tmp, "export_results")
+        sets = sets + (f"paths.results_dir={results}",)
+        cfg = model_cfg(name, *sets)
+        ckpt = checkpoint_path(results, cfg.experiment.model_name)
+        save_checkpoint(ckpt, make_model(name, cfg, bias=0.5))
+    archive = os.path.join(tmp, f"{name}.mdex")
+    argv = ["--device", "cuda", "--out", archive, "--max-batch", str(EXPORT_MAX_BATCH[name])]
+    argv += [a for x in sets for a in ("--set", x)]
+    reset_counts()
+    t0 = time.perf_counter()
+    meta = export_model.main(argv)
+    export_s = time.perf_counter() - t0
+    traced = read_counts()
+    check(not any(traced.values()), f"exporting launched kernels: {traced}")
+    with zipfile.ZipFile(archive) as zf:
+        sizes = {i.filename: i.file_size for i in zf.infolist()}
+    out = {"phase": "export", "model": name, "buckets": meta["batch_sizes"],
+           "cli_s": export_s, "export_s_by_bucket": meta["export_seconds"]["cuda"],
+           "archive_mb": os.path.getsize(archive) / 1e6,
+           "state_dict_mb": sizes[WEIGHTS_NAME] / 1e6,
+           "program_mb": {k: v / 1e6 for k, v in sizes.items() if k.endswith(".pt2")}}
+
+    # the live predict step on the same checkpoint
+    cfg = model_cfg(name, *sets)
+    live_model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
+    check(report is not None and not report["shape_mismatch"], "checkpoint reload failed")
+    live = make_predict_step(live_model, cfg)
+    native = tuple(int(s_) for s_ in cfg.framework.native_size)
+    buckets = list(meta["batch_sizes"])
+    want, live_counts = {}, {}
+    for b in buckets:
+        x = torch.from_numpy(export_inputs(b, native)).cuda()
+        reset_counts()
+        want[str(b)] = live(x).cpu().numpy()
+        live_counts[str(b)] = read_counts()
+        check((want[str(b)] > 0).mean() > 0.5 and float(want[str(b)].std()) > 0,
+              f"bucket {b}: the live depth map is clipped at the ReLU; nothing to compare")
+
+    # a fresh interpreter loads the archive and predicts
+    npz = os.path.join(tmp, f"{name}_exported.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, archive, npz],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the loading process failed:\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(child["models_imported"] == [] and child["jax_imported"] == [],
+          f"the loader imported {child['models_imported'] + child['jax_imported']}")
+    got = np.load(npz)
+    per_bucket = {}
+    for b in buckets:
+        key = str(b)
+        cmp = _compare(got[key], want[key])
+        check(got[key].shape == (b, *native) and np.isfinite(got[key]).all(),
+              f"bucket {b}: exported output {got[key].shape}")
+        check(cmp["max_abs"] <= TOL_EXPORT and cmp["rel_l2"] <= TOL_EXPORT_REL_L2,
+              f"bucket {b}: exported vs live predict step {cmp}")
+        expected = {k: EXPORT_BUCKET_LAUNCHES[name].get(k, 0) for k in child["counts"][key]}
+        check(child["counts"][key] == expected == live_counts[key],
+              f"bucket {b}: exported launches {child['counts'][key]}, live "
+              f"{live_counts[key]}, want {expected}")
+        per_bucket[key] = {**cmp, "launches": {k: v for k, v in expected.items() if v}}
+    out.update(child_s=child_s, child_load_s=child["load_s"],
+               child_first_predict_s=child["first_predict_s"], by_bucket=per_bucket)
+
+    # in this process: one call a bucket (the path's launches), then timing
+    predictor = load_exported(archive, "cuda")
+    reset_counts()
+    here = {str(b): predictor.predict(export_inputs(b, native)) for b in buckets}
+    launches = read_counts()
+    check_path_launches(path, launches, "while the exported predictor ran its buckets")
+    for key, depth in here.items():
+        cmp = _compare(depth, want[key])
+        check(cmp["max_abs"] <= TOL_EXPORT and cmp["rel_l2"] <= TOL_EXPORT_REL_L2,
+              f"bucket {key}: exported vs live predict step in this process {cmp}")
+        per_bucket[key]["in_process"] = cmp
+    host_ms = {}
+    for b in buckets:
+        batch = export_inputs(b, native)
+        steps = {"live": live, "exported": predictor.predict_tensor}
+        host_ms[str(b)] = {k: [] for k in steps}
+        for k in ("live", "exported", "exported", "live"):
+            host_ms[str(b)][k].append(_host_ms(steps[k], batch))
+    x1 = torch.from_numpy(export_inputs(1, native)).cuda()
+    step_ms = cuda_ms(lambda: predictor.predict_tensor(x1), reps=8, warmup=2)
+    profile = _profile_step(lambda: predictor.predict_tensor(x1), step_ms)
+    plain_ops = sorted({e.key for e in profiled(lambda: predictor.predict_tensor(x1))
+                        if e.key in PLAIN_OPS})
+    check(not plain_ops, f"the exported program ran plain versions' operations: {plain_ops}")
+    live_ms = cuda_ms(lambda: live(x1), reps=8, warmup=2)
+    out.update(host_ms_by_bucket=host_ms, bucket1_step_ms=step_ms, bucket1_profile=profile,
+               live_bucket1_step_ms=live_ms,
+               live_bucket1_profile=_profile_step(lambda: live(x1), live_ms))
+    del predictor
+
+    # served over HTTP; TF32 at torch's defaults first: the server turns it off
+    torch.backends.cudnn.allow_tf32 = True
+    service = build_service_from_exported(cfg, archive, "cuda", window_ms=5.0)
+    tf32 = torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
+    check(not tf32, "serving the archive left TF32 on")
+    check(tuple(service.batcher.buckets) == tuple(buckets), f"buckets {service.batcher.buckets}")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        images = export_inputs(N_CLIENTS * N_PER_CLIENT, native)
+        reset_counts()
+        replies, serve_s = _post_concurrently(url, images)
+        served = read_counts()
+        check_path_launches(path, served, "while the archive was served")
+        worst, sizes_seen = 0.0, []
+        for img, (status, body, headers) in zip(images, replies):
+            check(status == 200, f"HTTP {status}: {body[:200]!r}")
+            depth = np.load(io.BytesIO(body))
+            ref = live(torch.from_numpy(img[None]).cuda()).cpu().numpy()[0]
+            err = float(np.abs(depth - ref).max())
+            check(depth.shape == native and err <= TOL_SERVED
+                  and err <= TOL_SERVED_SPREAD * float(ref.max() - ref.min()),
+                  f"served reply vs live predict step: max-abs {err}")
+            worst = max(worst, err)
+            sizes_seen.append(int(headers["X-Batch-Size"]))
+        check(max(sizes_seen) > 1, f"no request was coalesced: {sizes_seen}")
+        out.update(serve_s=serve_s, served_requests=len(replies), served_batch_sizes=sizes_seen,
+                   served_vs_live_max_abs=worst, served_launches=served,
+                   seconds=time.perf_counter() - phase_t0)
+        emit(out)
+        return launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+
+
+def phase_op_dispatch() -> dict:
+    """Host microseconds of one call through each ``torch.library`` op
+    against one call of its CUDA implementation, at small shapes where the
+    host is the limit: 200 calls back to back, in turns op, direct, direct,
+    op. The train steps call the ops too (K1's and K4's forwards, 13 calls a
+    flagship step and 12 a DA-V2 step), so the difference times those counts
+    is what the op costs a step's host."""
+    from mde_tpu_torch.ops import kernels as K
+
+    def host_us(fn, n: int = 200) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    u8 = torch.randint(0, 256, (1, 8, 8, 3), dtype=torch.uint8, device="cuda")
+    q, k, v = (torch.randn(1, 1, 256, 32, device="cuda") for _ in range(3))
+    valid = torch.ones(1, 256, device="cuda")
+    f = torch.randn(1, 64, 6, 64, device="cuda")
+    cases = {
+        "preprocess_u8": (lambda: K.preprocess_u8_op(u8, 8, 8),
+                          lambda: K._preprocess_u8_cuda(u8, 8, 8)),
+        "window_attention": (lambda: K.window_attention_op(q, k, v, valid, 8, False),
+                             lambda: K._window_attention_cuda(q, k, v, valid, 8, False)),
+        "flash_attention": (lambda: K.flash_attention_op(f, f, f, False),
+                            lambda: K._flash_attention_cuda(f, f, f, False)),
+    }
+    out = {}
+    for name, (op, direct) in cases.items():
+        for fn in (op, direct):
+            host_us(fn, 20)
+        turns = {"op": [], "direct": []}
+        for key in ("op", "direct", "direct", "op"):
+            turns[key].append(host_us(op if key == "op" else direct))
+        op_us, direct_us = (statistics.median(turns[k_]) for k_ in ("op", "direct"))
+        out[name] = {"op_us": op_us, "direct_us": direct_us, "overhead_us": op_us - direct_us,
+                     "turns": turns}
+    k1, k4 = out["window_attention"]["overhead_us"], out["flash_attention"]["overhead_us"]
+    out["train_step_overhead_us"] = {"flagship": k1 + 12 * k4, "da2": 12 * k4}
+    reset_counts()
+    emit({"phase": "op_dispatch", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -1832,6 +2125,7 @@ def main() -> int:
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
           "--k4-backward-only and --k2-only")
     kernels = phase_kernels()
+    phase_op_dispatch()
     by_path = {}
     for name in ("flagship", "da2"):
         by_path[f"{name}_serve"] = phase_serve(name)

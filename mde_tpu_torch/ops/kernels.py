@@ -50,10 +50,20 @@ a plain C interface, loaded with ``ctypes``:
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and for a
 CUDA tensor checks device, dtype, shape and contiguity, then launches the
-kernel or raises. Each counts its launches in a ``launches`` attribute
-(``bf16_launches``, ``backward_launches``, ``bf16_backward_launches`` and
+kernel or raises. The forwards of the predict path (K1, K3's eval form and
+K4) are ``torch.library`` ops in the ``mde_tpu`` namespace
+(``torch.ops.mde_tpu.window_attention``, ``.preprocess_u8`` and
+``.flash_attention``): a fake implementation gives their outputs' shapes, the
+CPU implementation is the plain version and the CUDA one launches the kernel
+(or raises), so that ``torch.export`` records each as one node of its graph
+(it cannot trace a ctypes call) and a program loaded from an archive launches
+the kernels. Their wrappers and autograd Functions call the op; the
+backward kernels, K2 and K3's train form are called directly. Each counts
+its launches in a ``launches`` attribute (``bf16_launches``,
+``backward_launches``, ``bf16_backward_launches`` and
 ``backward_bf16_launches`` for the other forms; K1's ``stats_launches``
-counts the forwards that also wrote the row statistics).
+counts the forwards that also wrote the row statistics), in the CUDA
+implementation, so that a loaded program's launches count too.
 
 The library is built at first use into ``mde_tpu_torch/_build`` (listed in
 .gitignore), named by a hash of the sources and flags, so an edited source is
@@ -206,6 +216,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+OPS_NAMESPACE = "mde_tpu"
+_ops = torch.library.Library(OPS_NAMESPACE, "DEF")
+
+
+def _define(schema: str, cpu, cuda, fake):
+    """Define ``mde_tpu::<schema>`` with its CPU, CUDA and fake
+    implementations; returns the op's overload."""
+    name = schema.split("(", 1)[0]
+    _ops.define(schema)
+    _ops.impl(name, cpu, "CPU")
+    _ops.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_ops)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name).default
+
+
+def _op_device(x: torch.Tensor, name: str) -> None:
+    """The ops take CPU and CUDA tensors; any other device raises here, before
+    the op, whose fake implementation would answer a meta tensor."""
+    _require(x.device.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {x.device}")
+
+
+def _no_stats(x: torch.Tensor) -> torch.Tensor:
+    """The empty float32 statistics an op returns when none were asked for."""
+    return x.new_empty((0,), dtype=torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # K1: windowed attention over pre-partitioned windows
 # ---------------------------------------------------------------------------
@@ -301,14 +337,9 @@ def _window_shape(qw, kw, vw, num_heads: int, key_valid, name: str):
     return b, n, t, c, c // num_heads
 
 
-def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats: bool):
-    """(out, stats): stats (B, N, heads, T, 2) float32 only when
-    ``need_stats``, else None."""
-    if qw.device.type == "cpu":
-        if need_stats:
-            return window_attention_plain_stats(qw, kw, vw, num_heads, key_valid)
-        return window_attention_plain(qw, kw, vw, num_heads, key_valid), None
-    _require(qw.device.type == "cuda", f"window_attention: unsupported device {qw.device}")
+def _window_attention_cuda(qw, kw, vw, key_valid, num_heads: int, need_stats: bool):
+    """The op's CUDA implementation: (out, stats), stats (B, N, heads, T, 2)
+    float32 when ``need_stats``, else empty."""
     b, n, t, c, hd = _window_shape(qw, kw, vw, num_heads, key_valid, "window_attention")
     # head_dim 4 and 8 take the tiled kernel (any T <= 1024, at most 80 KB of
     # shared memory); other widths stage k, v and the mask row as float32
@@ -319,7 +350,7 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats:
              f"window_attention: q/k/v must start {4 * qw.element_size()}-byte aligned")
     out = torch.empty_like(vw)
     stats = (torch.empty((b, n, num_heads, t, 2), dtype=torch.float32, device=qw.device)
-             if need_stats else None)
+             if need_stats else _no_stats(qw))
     lib = load()
     bf16 = qw.dtype == torch.bfloat16
     fn = lib.mde_window_attention_bf16 if bf16 else lib.mde_window_attention_f32
@@ -334,6 +365,34 @@ def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats:
     if need_stats:
         window_attention.stats_launches += 1
     return out, stats
+
+
+def _window_attention_cpu(qw, kw, vw, key_valid, num_heads: int, need_stats: bool):
+    if need_stats:
+        out, stats = window_attention_plain_stats(qw, kw, vw, num_heads, key_valid)
+        return out.contiguous(), stats
+    return window_attention_plain(qw, kw, vw, num_heads, key_valid).contiguous(), _no_stats(qw)
+
+
+def _window_attention_fake(qw, kw, vw, key_valid, num_heads: int, need_stats: bool):
+    b, n, t, _ = qw.shape
+    stats = (qw.new_empty((b, n, num_heads, t, 2), dtype=torch.float32) if need_stats
+             else _no_stats(qw))
+    return vw.new_empty(vw.shape), stats
+
+
+window_attention_op = _define(
+    "window_attention(Tensor qw, Tensor kw, Tensor vw, Tensor key_valid, int num_heads, "
+    "bool need_stats) -> (Tensor, Tensor)",
+    _window_attention_cpu, _window_attention_cuda, _window_attention_fake)
+
+
+def _window_attention_forward(qw, kw, vw, num_heads: int, key_valid, need_stats: bool):
+    """(out, stats) through the op: stats (B, N, heads, T, 2) float32 only
+    when ``need_stats``, else None."""
+    _op_device(qw, "window_attention")
+    out, stats = window_attention_op(qw, kw, vw, key_valid, num_heads, need_stats)
+    return out, stats if need_stats else None
 
 
 def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, out, stats, dout):
@@ -374,17 +433,16 @@ def _window_attention_backward(qw, kw, vw, num_heads: int, key_valid, out, stats
 
 
 class _WindowAttention(torch.autograd.Function):
-    """Kernel forward and kernel backward, as ``_FlashAttention``: the
-    forward writes the rows' (max, 1/sum) only when a backward will follow
-    (``need_grad``), and the backward forms the probabilities from them and
-    the stored output; no probability is saved."""
+    """Kernel forward and kernel backward, as ``_FlashAttention``: taken
+    only when a backward will follow, so the forward writes the rows' (max,
+    1/sum), and the backward forms the probabilities from them and the stored
+    output; no probability is saved."""
 
     @staticmethod
-    def forward(ctx, qw, kw, vw, num_heads, key_valid, need_grad):
-        out, stats = _window_attention_forward(qw, kw, vw, num_heads, key_valid, need_grad)
-        if need_grad:
-            ctx.save_for_backward(qw, kw, vw, key_valid, out, stats)
-            ctx.num_heads = num_heads
+    def forward(ctx, qw, kw, vw, num_heads, key_valid):
+        out, stats = _window_attention_forward(qw, kw, vw, num_heads, key_valid, True)
+        ctx.save_for_backward(qw, kw, vw, key_valid, out, stats)
+        ctx.num_heads = num_heads
         return out
 
     @staticmethod
@@ -392,13 +450,17 @@ class _WindowAttention(torch.autograd.Function):
         qw, kw, vw, key_valid, out, stats = ctx.saved_tensors
         return (*_window_attention_backward(qw, kw, vw, ctx.num_heads, key_valid, out, stats,
                                             grad),
-                None, None, None)
+                None, None)
 
 
 def window_attention(qw, kw, vw, num_heads: int, key_valid):
-    """Windowed attention, (B, N, T, C) -> (B, N, T, C); see the plain version."""
-    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (qw, kw, vw))
-    return _WindowAttention.apply(qw, kw, vw, num_heads, key_valid, need_grad)
+    """Windowed attention, (B, N, T, C) -> (B, N, T, C); see the plain version.
+    The autograd Function only when a backward can follow (grad mode on and an
+    input that requires grad), else the op alone: one node of an exported
+    graph."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qw, kw, vw)):
+        return _WindowAttention.apply(qw, kw, vw, num_heads, key_valid)
+    return _window_attention_forward(qw, kw, vw, num_heads, key_valid, False)[0]
 
 
 window_attention.launches = 0  # float32 kernel
@@ -646,11 +708,8 @@ def _u8_shape(rgb_u8: torch.Tensor, size, name: str):
     return b, h, w, oh, ow
 
 
-def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> (B, 3, size[0], size[1]) normalised float32."""
-    if rgb_u8.device.type == "cpu":
-        return preprocess_u8_plain(rgb_u8, size)
-    b, h, w, oh, ow = _u8_shape(rgb_u8, size, "preprocess_u8")
+def _preprocess_u8_cuda(rgb_u8: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    b, h, w, oh, ow = _u8_shape(rgb_u8, (height, width), "preprocess_u8")
     out = torch.empty((b, 3, oh, ow), dtype=torch.float32, device=rgb_u8.device)
     lib = load()
     err = lib.mde_preprocess_u8_f32(rgb_u8.data_ptr(), out.data_ptr(), b, h, w, oh, ow,
@@ -658,6 +717,23 @@ def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
     _check(lib, err, "preprocess_u8")
     preprocess_u8.launches += 1
     return out
+
+
+def _preprocess_u8_fake(rgb_u8: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    return rgb_u8.new_empty((rgb_u8.shape[0], 3, height, width), dtype=torch.float32)
+
+
+preprocess_u8_op = _define(
+    "preprocess_u8(Tensor rgb_u8, int height, int width) -> Tensor",
+    lambda rgb_u8, height, width: preprocess_u8_plain(rgb_u8, (height, width)),
+    _preprocess_u8_cuda, _preprocess_u8_fake)
+
+
+def preprocess_u8(rgb_u8: torch.Tensor, size) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> (B, 3, size[0], size[1]) normalised float32,
+    through the op."""
+    _op_device(rgb_u8, "preprocess_u8")
+    return preprocess_u8_op(rgb_u8, int(size[0]), int(size[1]))
 
 
 preprocess_u8.launches = 0
@@ -858,18 +934,15 @@ def _flash_shape(q, k, v):
     return b, n, h, d
 
 
-def _flash_attention_forward(q, k, v, need_lse: bool):
-    """(out, lse): lse (B, H, N) float32 only when ``need_lse``, else None."""
-    if q.device.type == "cpu":
-        if need_lse:
-            return flash_attention_plain_lse(q, k, v)
-        return flash_attention_plain(q, k, v), None
-    _require(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
+def _flash_attention_cuda(q, k, v, need_lse: bool):
+    """The op's CUDA implementation: (out, lse), lse (B, H, N) float32 when
+    ``need_lse``, else empty."""
     b, n, h, d = _flash_shape(q, k, v)
     dtype = q.dtype
     stride_b, stride_n = q.stride()[:2]
     out = torch.empty((b, n, h, d), dtype=dtype, device=q.device)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if need_lse else None
+    lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device) if need_lse
+           else _no_stats(q))
     lib = load()
     bf16 = dtype == torch.bfloat16
     fn = lib.mde_flash_attention_bf16 if bf16 else lib.mde_flash_attention_f32
@@ -882,6 +955,32 @@ def _flash_attention_forward(q, k, v, need_lse: bool):
     else:
         flash_attention.launches += 1
     return out, lse
+
+
+def _flash_attention_cpu(q, k, v, need_lse: bool):
+    if need_lse:
+        out, lse = flash_attention_plain_lse(q, k, v)
+        return out.contiguous(), lse
+    return flash_attention_plain(q, k, v).contiguous(), _no_stats(q)
+
+
+def _flash_attention_fake(q, k, v, need_lse: bool):
+    b, n, h, d = q.shape
+    lse = q.new_empty((b, h, n), dtype=torch.float32) if need_lse else _no_stats(q)
+    return q.new_empty((b, n, h, d)), lse
+
+
+flash_attention_op = _define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool need_lse) -> (Tensor, Tensor)",
+    _flash_attention_cpu, _flash_attention_cuda, _flash_attention_fake)
+
+
+def _flash_attention_forward(q, k, v, need_lse: bool):
+    """(out, lse) through the op: lse (B, H, N) float32 only when
+    ``need_lse``, else None."""
+    _op_device(q, "flash_attention")
+    out, lse = flash_attention_op(q, k, v, need_lse)
+    return out, lse if need_lse else None
 
 
 def _flash_attention_backward(q, k, v, out, lse, dout):
@@ -933,29 +1032,31 @@ def flash_attention_backward_plan(dtype, n: int) -> dict:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward and kernel backward. The forward writes the rows'
-    log-sum-exp only when a backward will follow (``need_grad``: grad mode on
-    and an input that requires grad, which ``forward`` cannot see: it runs
-    under no_grad, and ``ctx.needs_input_grad`` is set under no_grad too);
-    the backward recomputes the probabilities from it and saves none."""
+    """Kernel forward and kernel backward, taken only when a backward will
+    follow (grad mode on and an input that requires grad, which ``forward``
+    cannot see: it runs under no_grad, and ``ctx.needs_input_grad`` is set
+    under no_grad too), so the forward writes the rows' log-sum-exp; the
+    backward recomputes the probabilities from it and saves none."""
 
     @staticmethod
-    def forward(ctx, q, k, v, need_grad):
-        out, lse = _flash_attention_forward(q, k, v, need_grad)
-        if need_grad:
-            ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v):
+        out, lse = _flash_attention_forward(q, k, v, True)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*_flash_attention_backward(q, k, v, out, lse, grad), None)
+        return _flash_attention_backward(q, k, v, out, lse, grad)
 
 
 def flash_attention(q, k, v):
-    """Full attention, (B, N, H, D) -> (B, N, H, D); see the plain version."""
-    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
-    return _FlashAttention.apply(q, k, v, need_grad)
+    """Full attention, (B, N, H, D) -> (B, N, H, D); see the plain version.
+    The autograd Function only when a backward can follow, else the op alone:
+    one node of an exported graph."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v)
+    return _flash_attention_forward(q, k, v, False)[0]
 
 
 flash_attention.launches = 0  # float32 kernel

@@ -23,7 +23,10 @@ HTTP surface (stdlib ThreadingHTTPServer):
   GET  /healthz  -> 200, JSON {status, model, buckets, stats}
 
 Run: ``python -m mde_tpu_torch.tools.serve [--config ...] [--device cuda]
-[--port 8000]``. Serving an exported program (``--exported``) is not ported yet.
+[--port 8000]``. With ``--exported MODEL.mdex`` it serves an archive of
+``python -m mde_tpu_torch.tools.export_model`` (train/export.py) instead: no
+model is built and no checkpoint read, and the batcher's buckets are the
+archive's.
 """
 
 from __future__ import annotations
@@ -236,19 +239,23 @@ class DynamicBatcher:
 
 
 class DepthService:
-    """Model + bucketed predict step on ``device``; owns decode to native size."""
+    """Model + bucketed predict step on ``device``; owns decode to native size.
+    With ``predict_many`` (an exported archive's ``ExportedPredictor.predict``)
+    there is no model: that function is the device step, run synchronously."""
 
     def __init__(self, model, cfg, device="cuda", max_batch: int = 8,
                  window_ms: float = 5.0, request_timeout_s: float = 300.0,
-                 pipeline: bool = True):
+                 pipeline: bool = True, predict_many=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.native = tuple(int(s) for s in cfg.framework.native_size)
         self.model_name = str(cfg.experiment.model_name)
         self.model = model
-        self._step = make_predict_step(model, cfg)
+        self._predict_impl = predict_many
         dispatch = fetch = None
-        if pipeline:
+        if predict_many is None:
+            self._step = make_predict_step(model, cfg)
+        if predict_many is None and pipeline:
             # async dispatch/fetch pair: the batcher admits and dispatches
             # batch k+1 while batch k is still in flight on the device.
             dispatch, fetch = self._predict_dispatch, self._predict_fetch
@@ -269,6 +276,8 @@ class DepthService:
         return handle.cpu().numpy()
 
     def _predict_many(self, rgb_u8: np.ndarray) -> np.ndarray:
+        if self._predict_impl is not None:
+            return np.asarray(self._predict_impl(rgb_u8))
         return self._predict_fetch(self._predict_dispatch(rgb_u8))
 
     def warmup(self):
@@ -424,6 +433,37 @@ def build_service(cfg, device="cuda", max_batch: int = 8, window_ms: float = 5.0
     return service
 
 
+def build_service_from_exported(cfg, artifact_path: str, device="cuda", window_ms: float = 5.0,
+                                warmup: bool = True,
+                                request_timeout_s: float = 300.0) -> DepthService:
+    """Serve an archive of train/export.py on ``device``: no model is built and
+    no checkpoint read. The batcher's buckets are exactly the archive's, its
+    native size must be the config's, and the model name is the archive's.
+    TF32 is turned off as in ``build_service``: it is a process setting that
+    an exported graph does not carry."""
+    from ..train.export import load_exported
+
+    set_float32_precision()
+    predictor = load_exported(artifact_path, device)
+    meta = predictor.meta
+    if list(meta["native_size"]) != [int(s) for s in cfg.framework.native_size]:
+        raise ValueError(f"artifact native_size {meta['native_size']} != config "
+                         f"{list(cfg.framework.native_size)}")
+    service = DepthService(None, cfg, device, max_batch=max(predictor.batch_sizes),
+                           window_ms=window_ms, request_timeout_s=request_timeout_s,
+                           predict_many=predictor.predict)
+    if tuple(service.batcher.buckets) != tuple(predictor.batch_sizes):
+        service.close()
+        raise ValueError(
+            f"artifact buckets {predictor.batch_sizes} don't match the batcher's "
+            f"{service.batcher.buckets}; re-export with the standard bucket ladder "
+            "(tools/export_model.py does)")
+    service.model_name = str(meta["model_name"])
+    if warmup:
+        service.warmup()
+    return service
+
+
 def main():
     def extra(p):
         p.add_argument("--host", default="127.0.0.1")
@@ -431,6 +471,10 @@ def main():
         p.add_argument("--max-batch", type=int, default=8)
         p.add_argument("--window-ms", type=float, default=5.0)
         p.add_argument("--no-warmup", action="store_true")
+        p.add_argument("--exported", default=None, metavar="MODEL.mdex",
+                       help="serve an exported archive (python -m "
+                            "mde_tpu_torch.tools.export_model) instead of building the model "
+                            "and loading a checkpoint")
         p.add_argument("--request-timeout", type=float, default=300.0,
                        help="seconds a request waits for its device step")
         p.add_argument("--allow-uninitialized", action="store_true",
@@ -441,11 +485,16 @@ def main():
                             "then run strictly one at a time)")
 
     cfg, args = parse_config("Depth inference server", extra=extra)
-    service = build_service(cfg, args.device, args.max_batch, args.window_ms,
-                            warmup=not args.no_warmup,
-                            request_timeout_s=args.request_timeout,
-                            allow_uninitialized=args.allow_uninitialized,
-                            pipeline=not args.no_pipeline)
+    if args.exported:
+        service = build_service_from_exported(cfg, args.exported, args.device, args.window_ms,
+                                              warmup=not args.no_warmup,
+                                              request_timeout_s=args.request_timeout)
+    else:
+        service = build_service(cfg, args.device, args.max_batch, args.window_ms,
+                                warmup=not args.no_warmup,
+                                request_timeout_s=args.request_timeout,
+                                allow_uninitialized=args.allow_uninitialized,
+                                pipeline=not args.no_pipeline)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
 
     import signal

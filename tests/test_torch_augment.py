@@ -22,9 +22,19 @@ injected into the port's math:
   for four keys on a batch of six: RGB rtol 1e-5, atol 5e-5 (the jitter's
   hue step, atol 2e-6 in tests/test_torch_train.py, grows by 1/0.225 in the
   normalisation, and the depth resize's rounding moves the warp's taps),
-  depth rtol 2e-5, atol 1e-5 (the align-corners depth resize: F.interpolate
-  against JAX's interpolation matrices, rtol 1e-5 in
-  tests/test_torch_train.py, mixed by the warp).
+  depth rtol 2e-5, atol 1e-4. The two packages' affines differ by up to
+  2e-6 (``pair_geometric_affine``: cos and sin of the angle and the
+  composition's last ulps; XLA's and torch's cos/sin are different
+  approximations, so no order of operations gives JAX's bits), which moves a
+  source coordinate below 64 by up to two of its ulps (3.8e-6 each; 1.5
+  measured on these keys). An output is a blend of neighbouring depths, so
+  such a shift moves it by the coordinate's change times the step between
+  the taps it blends: up to 10 inside the image (depths in (0.1, 10]), and at
+  the border, where a tap outside the image reads 0, the step is the depth
+  itself, again up to 10. Two ulps times 10 is 7.6e-5; atol 1e-4 is the
+  bound ``affine_sample``'s own test derives above. The align-corners depth
+  resize (F.interpolate against JAX's interpolation matrices, rtol 1e-5 in
+  tests/test_torch_train.py) adds to the rtol.
 
 Also: the draws come from the generator and repeat under one seed; one
 flagship train step with ``augmentation: True`` gives a finite loss and
@@ -214,7 +224,7 @@ def test_pairaug_matches_jax_with_injected_draws(seed):
     rgb, d = T.pairaug_apply(_t(u8), _t(depth), draws, SIZE, noise=noise)
     assert rgb.shape == (6, 3, *SIZE) and rgb.is_contiguous() and d.shape == (6, *SIZE)
     np.testing.assert_allclose(_nhwc(rgb), np.asarray(jrgb), rtol=1e-5, atol=5e-5)
-    np.testing.assert_allclose(d.numpy(), np.asarray(jdepth), rtol=2e-5, atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jdepth), rtol=2e-5, atol=1e-4)
 
 
 def test_pairaug_seeds_cover_every_stage():
