@@ -4,6 +4,7 @@ paths on one CUDA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
     python3 chip_smoke.py --k2-only            # K2's checks and times alone
+    python3 chip_smoke.py --parallel-only      # the data-parallel phase alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
@@ -101,6 +102,26 @@ Phases, each printing JSON lines:
               serves it over HTTP to concurrent clients. Before the models,
               op_dispatch: the host us of a call through each torch.library
               op against its CUDA implementation called directly.
+  9. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
+              card each over NCCL where there are two cards or more, else
+              two ranks sharing card 0 over gloo (named on the line), each
+              a process of parallel.launch: three train steps at global
+              batch 4 of the flagship in float32 (TF32 off) and bf16 and of
+              DA-V2-S in bf16, at learning rate 0, against the one-process
+              step on the same batches and generators (every step's loss,
+              the last step's averaged gradient, the state after), each
+              rank's launches a step (PARALLEL_STEP_LAUNCHES) and its step
+              ms beside the one process's; the same runs as a world of one
+              over NCCL through the same DDP code and the cross-process
+              BatchNorm, the noise witness a bf16 gradient is held to; two
+              flagship steps in float64 at the config's learning rate (the
+              plain versions), the update under DDP against one process's;
+              the cross-process BatchNorm alone in bf16 at the flagship's
+              first BN layer against the layer in float64, beside cuDNN's; fit with
+              generate_test_predictions on W ranks (equal histories, one
+              checkpoint, a prediction an image); then the training CLI at
+              W, which starts its ranks.
+              Path ``parallel``: the ranks' train steps, summed over ranks.
 Then a line with every kernel's numbers and its launches by path (a train
 path's are those of its checks (a), (b) and (c); a tools path's those of its
 three tools; an export path's one exported call a bucket), and last
@@ -1090,18 +1111,7 @@ def _post_concurrently(url: str, images: np.ndarray) -> tuple[list, float]:
 def _counters():
     from mde_tpu_torch.ops import kernels as K
 
-    return {"window_attention": (K.window_attention, "launches"),
-            "window_attention_bf16": (K.window_attention, "bf16_launches"),
-            "window_attention_backward": (K.window_attention, "backward_launches"),
-            "window_attention_backward_bf16": (K.window_attention, "bf16_backward_launches"),
-            "preprocess_u8": (K.preprocess_u8, "launches"),
-            "preprocess_u8_train": (K.preprocess_u8_train, "launches"),
-            "si_loss_sums": (K.si_loss_sums, "launches"),
-            "si_loss_sums_backward": (K.si_loss_sums, "backward_launches"),
-            "flash_attention": (K.flash_attention, "launches"),
-            "flash_attention_bf16": (K.flash_attention, "bf16_launches"),
-            "flash_attention_backward": (K.flash_attention, "backward_launches"),
-            "flash_attention_backward_bf16": (K.flash_attention, "backward_bf16_launches")}
+    return K.LAUNCH_COUNTERS
 
 
 def reset_counts() -> None:
@@ -1144,6 +1154,12 @@ PATH_KERNELS = {
     # the exported predictor and the server over it: the serving path's kernels
     "flagship_export": ("window_attention", "preprocess_u8", "flash_attention"),
     "da2_export": ("preprocess_u8", "flash_attention"),
+    # data parallel: the flagship's float32 and bf16 train steps and
+    # DA-V2-S's bf16 ones on every rank
+    "parallel": ("window_attention", "window_attention_bf16", "window_attention_backward",
+                 "window_attention_backward_bf16", "preprocess_u8_train",
+                 "si_loss_sums", "si_loss_sums_backward", "flash_attention",
+                 "flash_attention_bf16", "flash_attention_backward_bf16"),
 }
 
 
@@ -1521,7 +1537,9 @@ def phase_train(name: str) -> dict:
         data = os.path.join(tmp, "data")
         synthetic.generate(data, n_train=16, n_test=4, size=TRAIN_SHAPE[1:], seed=SEED)
         results, preds = os.path.join(tmp, "results"), os.path.join(tmp, "predictions")
-        base_sets = ("training.n_epoch=2", f"paths.results_dir={results}",
+        # one process whatever the number of cards: the parallel phase
+        # drives W > 1
+        base_sets = ("training.n_epoch=2", "framework.mesh.data=1", f"paths.results_dir={results}",
                      f"paths.predictions_dir={preds}", "experiment.wandb_disable=true")
         sets = (DA2_SETS if name == "da2" else ()) + base_sets
         argv = ["--device", "cuda", "--data-dir", data] + [a for x in sets for a in ("--set", x)]
@@ -2099,6 +2117,435 @@ def phase_op_dispatch() -> dict:
     return out
 
 
+# The parallel phase: (model, compute type) runs of PARALLEL_STEPS train
+# steps at global batch TRAIN_SHAPE[0], each held against the one-process
+# step on the same batches and generators. The learning rate is 0: in
+# float32 the flagship's trajectory is chaotic after one AdamW step (its
+# first update is lr * sign(g); two summation orders of one process give
+# second-step losses 3% apart, tests/test_torch_parallel.py), so every step
+# runs at the same weights and the check holds each step's loss and the
+# last step's averaged gradient. Losses: float32 TOL_TRAIN_LOSS, bf16
+# TOL_BF16_LOSS; the state after the steps (BN buffers move) rel-L2 at the
+# loss's bound; the gradient's rel-L2 against the one-process gradient of
+# the same type: float32 TOL_GRAD_GLOBAL (the flagship's noise band), bf16
+# PARALLEL_BF16_GRAD times a noise witness measured in the same run. The
+# witness is the one-process bf16 step against itself with its BatchNorm
+# layers in the cross-process form: a world of one over NCCL, whose
+# all-reduces change nothing, on the same rows. The ranks' step differs
+# from one process by that form and by the split of the batch's sums over
+# two processes, two reorderings of bf16 sums; the flagship's bf16 gradient
+# is mostly such rounding (0.74 rel-L2 from its float32 gradient in one
+# process: ``grad_rel_l2_vs_float32`` on the run's line). DA-V2-S has no BatchNorm, so its witness is
+# cuDNN's run-to-run noise alone; PARALLEL_BF16_GRAD_FLOOR (4x its ranks'
+# 0.0023) stands in below it. A gradient of zeros, or of the wrong rows,
+# reads about 1 or more.
+PARALLEL_RUNS = (("flagship", "float32"), ("flagship", "bfloat16"), ("da2", "bfloat16"))
+PARALLEL_STEPS = 3
+PARALLEL_BF16_GRAD, PARALLEL_BF16_GRAD_FLOOR = 1.5, 0.01
+# Each rank's launches a step: K3's train form, K2 forward and backward, K4
+# forward once per DINOv2 block (12; DA-V2-S's backward as well), K1
+# forward and backward once per cross-attention (the flagship).
+PARALLEL_STEP_LAUNCHES = {
+    ("flagship", "float32"): {"preprocess_u8_train": 1, "si_loss_sums": 1,
+                              "si_loss_sums_backward": 1, "flash_attention": 12,
+                              "window_attention": 1, "window_attention_backward": 1},
+    ("flagship", "bfloat16"): {"preprocess_u8_train": 1, "si_loss_sums": 1,
+                               "si_loss_sums_backward": 1, "flash_attention_bf16": 12,
+                               "window_attention_bf16": 1, "window_attention_backward_bf16": 1},
+    ("da2", "bfloat16"): {"preprocess_u8_train": 1, "si_loss_sums": 1,
+                          "si_loss_sums_backward": 1, "flash_attention_bf16": 12,
+                          "flash_attention_backward_bf16": 12},
+}
+
+
+# One run at the config's learning rate (1e-4), so that an optimizer update
+# under DDP is held against one process on the card: PARALLEL_F64_STEPS
+# flagship steps in float64, through the kernels' plain versions (the
+# kernels take float32 and bf16), losses and the state after (trainable
+# parameters and BN buffers) at TOL_PARALLEL_F64, the bound the CPU test
+# holds two gloo ranks to (tests/test_torch_parallel.py).
+PARALLEL_F64_STEPS = 2
+TOL_PARALLEL_F64 = 1e-5
+# The cross-process BatchNorm alone, bf16 input and float32 parameters (as
+# autocast runs it) on the ranks' 2 + 2 rows, against cuDNN's BatchNorm on
+# the 4 at the flagship's first BN layer (pretrained.layer1.1 at 448x576).
+# Everything against the layer in float64 on the same bf16 values (cuDNN's
+# distances from it beside, on the line). Output and input gradient: float32
+# values rounded once to bf16, so within half a bf16 ulp (2^-8 of the value)
+# plus TOL_BN_ATOL for the float32 error before the rounding. The weight and
+# bias gradients (the ranks' shares added) rel-L2 TOL_BN_SUMS: each is a sum
+# of 2^21 terms a channel that cancel to about 1/1000 of their magnitudes,
+# which this layer sums in float64 (cuDNN's float32 sums read 0.0036-0.0041
+# from float64). The running statistics rel-L2 TOL_BN_STATS.
+PARALLEL_BN_SHAPE = (4, 32, 224, 288)
+TOL_BN_RTOL, TOL_BN_ATOL = 2 ** -8, 1e-5
+TOL_BN_SUMS, TOL_BN_STATS = 1e-5, 1e-5
+
+
+def _parallel_world() -> tuple[int, str, str]:
+    """(W, --device, backend): one card a rank over NCCL with two cards or
+    more (W divides the global batch), else two ranks sharing card 0 over
+    gloo, which NCCL refuses; named on the phase's lines."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return (4 if n >= 4 else 2), "cuda", "nccl"
+    return 2, "cuda:0", "gloo"
+
+
+def phase_parallel() -> dict:
+    """Data-parallel training (``mde_tpu_torch/parallel``) on W ranks, each a
+    process started by ``parallel.launch``: the PARALLEL_RUNS against the
+    one-process step and against a world of one over NCCL through the same
+    DDP code (the bf16 runs' noise witness), the float64 update and the bf16
+    BatchNorm layer against one process,
+    ``fit`` with ``generate_test_predictions`` (histories equal on every
+    rank, one checkpoint, a prediction an image) and the evaluation steps
+    (the same metrics on every rank), then the training CLI at
+    W, which starts its ranks itself. Returns the launches of the W-rank runs
+    summed over ranks."""
+    from mde_tpu_torch.data import synthetic
+    from mde_tpu_torch.parallel import launch
+    from mde_tpu_torch.tools import main as train_cli
+    from mde_tpu_torch.tools.common import set_float32_precision
+
+    world, device, backend = _parallel_world()
+    set_float32_precision()
+    out = {"phase": "parallel", "world": world, "device": device, "backend": backend,
+           "cards": torch.cuda.device_count(),
+           "note": ("two ranks share one card over gloo (NCCL refuses two ranks on one card): "
+                    "a correctness run; its step times are not a scaling figure"
+                    if backend == "gloo" else "one card a rank over NCCL")}
+    emit(out)
+    total = dict.fromkeys(_counters(), 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        rng = np.random.default_rng(SEED + 7)
+        batches = []
+        for _ in range(PARALLEL_STEPS):
+            samples = [synthetic.make_sample(rng, *TRAIN_SHAPE[1:]) for _ in range(TRAIN_SHAPE[0])]
+            batches.append({"rgb": np.stack([x[0] for x in samples]),
+                            "depth": np.stack([x[1] for x in samples])})
+        torch.save(batches, os.path.join(tmp, "batches.pt"))
+        gens = [[SEED, 0, i] for i in range(PARALLEL_STEPS)]
+        runs, jobs = {}, []
+        for name, dtype in PARALLEL_RUNS:
+            label = f"{name}_{dtype}"
+            extra = (f"framework.compute_dtype={dtype}", "framework.learning_rate=0")
+            sets = list((DA2_SETS if name == "da2" else ()) + extra)
+            cfg = model_cfg(name, *extra)
+            model = make_model(name, cfg, bias=0.5 if name == "da2" else 2.0)
+            torch.save(model, os.path.join(tmp, f"{name}.pt"))
+            runs[label] = (name, dtype, cfg, model)
+            jobs.append({"name": label, "mode": "steps", "model": os.path.join(tmp, f"{name}.pt"),
+                         "sets": sets, "batches": os.path.join(tmp, "batches.pt"),
+                         "generators": gens, "grads": True})
+        data = os.path.join(tmp, "data")
+        synthetic.generate(data, n_train=16, n_test=5, size=TRAIN_SHAPE[1:], seed=SEED)
+        fit_sets = [f"paths.data_dir={data}", f"paths.results_dir={tmp}/fit/results",
+                    f"paths.predictions_dir={tmp}/fit/predictions", "training.n_epoch=2",
+                    "framework.learning_rate=0", "experiment.wandb_disable=true"]
+        jobs.append({"name": "fit", "mode": "fit", "model": os.path.join(tmp, "flagship.pt"),
+                     "sets": fit_sets})
+        jobs.append({"name": "flagship_float64", "mode": "steps",
+                     "model": os.path.join(tmp, "flagship.pt"),
+                     "sets": ["framework.compute_dtype=float32"],
+                     "batches": os.path.join(tmp, "batches.pt"),
+                     "generators": gens[:PARALLEL_F64_STEPS], "float64": True, "plain": True})
+        bn_input = _bn_input()
+        torch.save(bn_input, os.path.join(tmp, "bn_bf16.pt"))
+        jobs.append({"name": "bn_bf16", "mode": "batchnorm",
+                     "input": os.path.join(tmp, "bn_bf16.pt")})
+        reset_counts()
+        t0 = time.perf_counter()
+        got = launch.run({"world": world, "device": device, "out": tmp, "threads": 4,
+                          "jobs": jobs}, os.path.join(tmp, "spec.json"), timeout=900,
+                         backend=backend)
+        ranks_s = time.perf_counter() - t0
+        check(read_counts() == dict.fromkeys(_counters(), 0),
+              "the main process launched a kernel while the ranks ran")
+        # a world of one over NCCL through the same DDP code, the BN layers
+        # in the cross-process form: each run's noise witness
+        world1 = launch.run({"world": 1, "device": "cuda", "out": tmp, "jobs": [
+            {**job, "name": f"world1_{job['name']}"} for job in jobs[:len(runs)]]},
+            os.path.join(tmp, "spec1.json"), timeout=300, backend="nccl")
+        check(all(r["backend"] == backend and r["world"] == world
+                  for job in got.values() for r in job),
+              f"ranks ran over {[(r['backend'], r['world']) for r in got['fit']]}")
+        results = {}
+        for label, (name, dtype, cfg, model) in runs.items():
+            result = results[label] = _check_parallel_run(label, name, dtype, cfg, model,
+                                                          got[label], batches,
+                                                          world1[f"world1_{label}"][0])
+            for r in got[label]:
+                for step in r["launches"]:
+                    for k, v in step.items():
+                        total[k] += v
+        _check_parallel_float64(runs["flagship_float32"][3], got["flagship_float64"],
+                                batches[:PARALLEL_F64_STEPS])
+        _check_parallel_bn(bn_input, got["bn_bf16"])
+        fit = got["fit"]
+        hist = [r["history"] for r in fit]
+        ckpts = sorted(f for f in os.listdir(f"{tmp}/fit/results") if f.endswith(".pth"))
+        preds = sorted(os.listdir(f"{tmp}/fit/predictions"))
+        emit({**out, "run": "fit", "seconds_all_jobs": ranks_s,
+              "history": {k: hist[0][k] for k in ("train_loss", "val_loss", "n_train")},
+              "written": [r["written"] for r in fit], "checkpoints": ckpts,
+              "predictions": len(preds), "evaluate": fit[0]["evaluate"],
+              "suite": fit[0]["suite"]})
+        check(all(h[k] == hist[0][k] for h in hist for k in ("train_loss", "val_loss", "n_train")),
+              "fit's histories differ between ranks")
+        check(all(r["evaluate"] == fit[0]["evaluate"] and r["suite"] == fit[0]["suite"]
+                  for r in fit), "the ranks' evaluation metrics differ")
+        check(all(np.isfinite(list(fit[0]["evaluate"].values()))), "non-finite metrics")
+        check(len(hist[0]["train_loss"]) == 2 and np.isfinite(hist[0]["val_loss"]).all(),
+              f"fit history {hist[0]}")
+        check(len(ckpts) == 1, f"checkpoints {ckpts}")
+        check(len(preds) == 5 and sum(r["written"] for r in fit) == 5,
+              f"predictions {preds}, written {[r['written'] for r in fit]}")
+        arrays = [np.load(os.path.join(f"{tmp}/fit/predictions", p_)) for p_ in preds]
+        check(all(a.shape == TRAIN_SHAPE[1:] and np.isfinite(a).all() for a in arrays),
+              "fit's predictions are not finite native-size maps")
+
+        one = world1["world1_flagship_float32"][0]
+        loss0 = one["losses"][0]["loss"]
+        want0 = results["flagship_float32"]["losses_one_process"][0]
+        emit({**out, "run": "nccl_world1", "backend_ran": one["backend"], "loss": loss0,
+              "one_process_loss": want0, "step_ms": one["step_ms"],
+              "one_process_step_ms": results["flagship_float32"]["step_ms_one_process"]})
+        check(one["backend"] == "nccl", f"the world of one ran over {one['backend']}")
+        check(abs(loss0 - want0) <= TOL_TRAIN_LOSS * abs(want0),
+              f"NCCL world of one: loss {loss0} vs one process {want0}")
+
+        # the training CLI at W, which starts its own ranks
+        cli_results = os.path.join(tmp, "cli", "results")
+        pred_dir = os.path.join(tmp, "cli", "preds")
+        argv = ["--device", device, "--data-dir", data,
+                *(a for x in ("training.n_epoch=2", f"framework.mesh.data={world}",
+                              f"paths.results_dir={cli_results}",
+                              f"paths.predictions_dir={pred_dir}",
+                              "experiment.wandb_disable=true") for a in ("--set", x))]
+        saved = os.environ.get("MDE_DIST_BACKEND")
+        os.environ["MDE_DIST_BACKEND"] = backend
+        t0 = time.perf_counter()
+        try:
+            returned = train_cli.main(argv)
+        finally:
+            if saved is None:
+                os.environ.pop("MDE_DIST_BACKEND")
+            else:
+                os.environ["MDE_DIST_BACKEND"] = saved
+        cli_s = time.perf_counter() - t0
+        ckpts = sorted(f for f in os.listdir(cli_results) if f.endswith(".pth"))
+        preds = sorted(os.listdir(pred_dir))
+        emit({**out, "run": "cli", "seconds": cli_s, "checkpoints": ckpts,
+              "predictions": len(preds)})
+        check(returned is None, "the CLI trained in this process instead of starting its ranks")
+        check(len(ckpts) == 1 and len(preds) == 5, f"CLI wrote {ckpts}, {len(preds)} predictions")
+    check_path_launches("parallel", total, "by the ranks' train steps")
+    return total
+
+
+def _one_process_steps(model, cfg, batches, float64: bool = False) -> tuple[list, list, dict, dict]:
+    """The one-process steps on the card: (losses, step ms, the last step's
+    gradients, the state_dict after). ``float64``: the model and the
+    pipeline's outputs in float64, through the kernels' plain versions, as
+    the ranks' ``float64`` job runs."""
+    from mde_tpu_torch.data.transforms import make_train_pipeline
+    from mde_tpu_torch.parallel import launch
+    from mde_tpu_torch.train.trainer import make_optimizer, make_train_step, step_generator
+
+    model = copy.deepcopy(model).cuda()
+    if float64:
+        model = model.double()
+        pipeline = launch.float64_pipeline(
+            make_train_pipeline(bool(cfg.augmentation), cfg.framework.input_size))
+        with launch.train_pipeline(pipeline):
+            step = make_train_step(model, cfg, make_optimizer(model, cfg), plain=True)
+    else:
+        step = make_train_step(model, cfg, make_optimizer(model, cfg))
+    losses, ms = [], []
+    for i, b in enumerate(batches):
+        rgb, depth = torch.from_numpy(b["rgb"]).cuda(), torch.from_numpy(b["depth"]).cuda()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(rgb, depth, step_generator(SEED, 0, i))
+        losses.append({k: v.item() for k, v in metrics.items()})
+        ms.append((time.perf_counter() - t1) * 1e3)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return losses, ms, grads, model.state_dict()
+
+
+def _grad_rel(got: dict, want: dict) -> float:
+    keys = sorted(want)
+    return _rel_l2(torch.cat([got[k].double().flatten() for k in keys]),
+                   torch.cat([want[k].double().flatten() for k in keys]))
+
+
+def _subtree_rel(got: dict, want: dict) -> dict:
+    """Gradient rel-L2 by top-level module."""
+    out = {}
+    for top in sorted({k.split(".", 1)[0] for k in want}):
+        keys = sorted(k for k in want if k.split(".", 1)[0] == top)
+        out[top] = _grad_rel({k: got[k] for k in keys}, {k: want[k] for k in keys})
+    return out
+
+
+def _gap_leaves(got: dict, want: dict, n: int = 3) -> list:
+    """The ``n`` parameters carrying most of the squared gradient gap: (name,
+    share of the gap, the parameter's own rel-L2)."""
+    sq = {k: (got[k].double() - want[k].double()).square().sum().item() for k in want}
+    total = sum(sq.values())
+    return [(k, sq[k] / total, _grad_rel({k: got[k]}, {k: want[k]}))
+            for k in sorted(sq, key=sq.get, reverse=True)[:n]]
+
+
+def _check_parallel_run(label, name, dtype, cfg, model, ranks, batches, world1) -> dict:
+    """The one-process steps of ``label`` on the card against its W-rank run;
+    returns the numbers the phase line prints. ``world1`` is the run's world
+    of one over NCCL: its gradient against one process's is the noise
+    witness a bf16 run's gradient is held to (PARALLEL_RUNS' comment)."""
+    losses, ms, grads, state = _one_process_steps(model, cfg, batches)
+    state = {k: v.detach().cpu().float() for k, v in state.items()
+             if k in ranks[0]["state_dict"] and v.is_floating_point()}
+    r0 = ranks[0]
+    tol_loss = TOL_TRAIN_LOSS if dtype == "float32" else TOL_BF16_LOSS
+    loss_rel = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(r0["losses"], losses)]
+    grad_rel = _grad_rel(r0["grads"], grads)
+    state_rel = _rel_l2(torch.cat([r0["state_dict"][k].double().flatten() for k in state]),
+                        torch.cat([state[k].double().flatten() for k in state]))
+    want = PARALLEL_STEP_LAUNCHES[(name, dtype)]
+    per_step = [{k: v for k, v in step_.items() if v} for r in ranks for step_ in r["launches"]]
+    result = {"losses_ranks": [x["loss"] for x in r0["losses"]],
+              "losses_one_process": [x["loss"] for x in losses], "loss_rel": loss_rel,
+              "grad_rel_l2": grad_rel, "state_rel_l2": state_rel,
+              "step_ms_by_rank": [r["step_ms"] for r in ranks], "step_ms_one_process": ms,
+              "launches_per_rank_step": per_step[0]}
+    witness = _grad_rel(world1["grads"], grads)
+    result.update(witness_bn_form_world1=witness,
+                  grad_rel_l2_ranks_vs_world1=_grad_rel(r0["grads"], world1["grads"]),
+                  grad_rel_l2_by_subtree={"ranks": _subtree_rel(r0["grads"], grads),
+                                          "witness": _subtree_rel(world1["grads"], grads)},
+                  gap_leaves=_gap_leaves(r0["grads"], grads))
+    if dtype == "float32":
+        tol_grad = TOL_GRAD_GLOBAL
+    else:
+        tol_grad = PARALLEL_BF16_GRAD * max(witness, PARALLEL_BF16_GRAD_FLOOR)
+        cfg32 = copy.deepcopy(cfg)
+        cfg32.framework.compute_dtype = "float32"
+        grads32 = _one_process_steps(model, cfg32, batches)[2]
+        result["grad_rel_l2_vs_float32"] = {"ranks": _grad_rel(r0["grads"], grads32),
+                                            "one_process": _grad_rel(grads, grads32)}
+    result["tolerances"] = {"loss": tol_loss, "grad": tol_grad, "state": tol_loss}
+    check(all(r["losses"] == r0["losses"] for r in ranks), f"{label}: ranks' losses differ")
+    check(all(r["fingerprint"] == r0["fingerprint"] for r in ranks),
+          f"{label}: ranks' weights differ after the steps")
+    check(all(np.isfinite([x["loss"] for x in r0["losses"]])), f"{label}: non-finite loss")
+    emit({"phase": "parallel", "run": label, **result})
+    check(max(loss_rel) <= tol_loss, f"{label}: losses {loss_rel} above {tol_loss}")
+    check(grad_rel <= tol_grad, f"{label}: gradient rel-L2 {grad_rel} above {tol_grad}")
+    check(state_rel <= tol_loss, f"{label}: state rel-L2 {state_rel} above {tol_loss}")
+    check(all(s_ == want for s_ in per_step),
+          f"{label}: launches a rank a step {per_step}, want {want}")
+    return result
+
+
+def _check_parallel_float64(model, ranks, batches) -> dict:
+    """The ranks' float64 steps at the config's learning rate against one
+    process's on the card (PARALLEL_F64_STEPS)."""
+    cfg = model_cfg("flagship", "framework.compute_dtype=float32")
+    losses, ms, _, state = _one_process_steps(model, cfg, batches, float64=True)
+    r0 = ranks[0]
+    keys = [k for k, v in r0["state_dict"].items() if v.is_floating_point()]
+    state = {k: state[k].detach().cpu() for k in keys}
+    before = model.state_dict()
+    loss_rel = [abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(r0["losses"], losses)]
+    state_rel = _rel_l2(torch.cat([r0["state_dict"][k].double().flatten() for k in keys]),
+                        torch.cat([state[k].double().flatten() for k in keys]))
+    moved = sum(not torch.equal(state[k].float(), before[k].float()) for k in keys)
+    per_step = [{k: v for k, v in s_.items() if v} for r in ranks for s_ in r["launches"]]
+    result = {"learning_rate": float(cfg.framework.learning_rate),
+              "losses_ranks": [x["loss"] for x in r0["losses"]],
+              "losses_one_process": [x["loss"] for x in losses], "loss_rel": loss_rel,
+              "state_rel_l2": state_rel, "tensors_moved": moved, "tensors": len(keys),
+              "step_ms_by_rank": [r["step_ms"] for r in ranks], "step_ms_one_process": ms,
+              "tolerance": TOL_PARALLEL_F64}
+    emit({"phase": "parallel", "run": "flagship_float64", **result})
+    check(all(r["losses"] == r0["losses"] and r["fingerprint"] == r0["fingerprint"]
+              for r in ranks), "float64: the ranks' losses or weights differ")
+    check(max(loss_rel) <= TOL_PARALLEL_F64, f"float64: losses {loss_rel}")
+    check(state_rel <= TOL_PARALLEL_F64, f"float64: state rel-L2 {state_rel}")
+    check(moved > 100, f"float64: only {moved} tensors moved: no update ran")
+    check(all(not s_ for s_ in per_step), f"float64 runs the plain versions, launched {per_step}")
+    return result
+
+
+def _bn_input() -> dict:
+    """x and dy in bf16 at PARALLEL_BN_SHAPE (channel means and scales of a
+    convolution's output), a float32 BatchNorm2d state_dict."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    c = PARALLEL_BN_SHAPE[1]
+    bn = torch.nn.BatchNorm2d(c)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.5, 0.5, generator=g)
+        bn.running_mean.uniform_(-0.5, 0.5, generator=g)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+    scale = torch.rand(1, c, 1, 1, generator=g) * 1.5 + 0.5
+    mean = torch.rand(1, c, 1, 1, generator=g) * 6 - 3
+    x = torch.randn(PARALLEL_BN_SHAPE, generator=g) * scale + mean
+    return {"x": x.bfloat16(), "dy": torch.randn(PARALLEL_BN_SHAPE, generator=g).bfloat16(),
+            "state_dict": bn.state_dict()}
+
+
+def _check_parallel_bn(data: dict, ranks) -> dict:
+    """The ranks' cross-process BatchNorm (bf16 input) against cuDNN's
+    BatchNorm on the global batch, and both against the layer in float64 on
+    the same bf16 values, on the card."""
+    def run(dtype):
+        bn = torch.nn.BatchNorm2d(PARALLEL_BN_SHAPE[1]).to("cuda", dtype).train()
+        bn.load_state_dict(data["state_dict"])
+        x = data["x"].cuda().to(dtype if dtype == torch.float64 else torch.bfloat16)
+        x.requires_grad_(True)
+        y = bn(x)
+        y.backward(data["dy"].cuda().to(x.dtype))
+        return {"y": y.detach(), "dx": x.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+                "running_mean": bn.running_mean, "running_var": bn.running_var}
+
+    cudnn, exact = run(torch.float32), run(torch.float64)
+    ours = {k: torch.cat([r[k] for r in ranks]).cuda() for k in ("y", "dx")}
+    ours.update({k: sum(r[k] for r in ranks).cuda() for k in ("dw", "db")})
+    ours.update({k: ranks[0]["state_dict"][k].cuda() for k in ("running_mean", "running_var")})
+    result = {"shape": list(PARALLEL_BN_SHAPE), "input": "bfloat16", "parameters": "float32",
+              "tolerances": {"rtol": TOL_BN_RTOL, "atol": TOL_BN_ATOL, "sums": TOL_BN_SUMS,
+                             "stats": TOL_BN_STATS}}
+    checks = []
+    for key in ("y", "dx"):
+        got, want = ours[key].double(), exact[key]
+
+        def excess(t):  # beyond half a bf16 ulp of the float64 value
+            return ((t.double() - want).abs() - TOL_BN_RTOL * want.abs()).max().item()
+
+        result[key] = {"dtype": str(ours[key].dtype), "max_abs": want.abs().max().item(),
+                       "excess_over_half_ulp": {"ours": excess(got),
+                                                "cudnn": excess(cudnn[key])},
+                       "rel_l2_vs_float64": {"ours": _rel_l2(got, want),
+                                             "cudnn": _rel_l2(cudnn[key].double(), want)},
+                       "differing_from_cudnn": int((ours[key] != cudnn[key]).sum().item())}
+        checks.append((ours[key].dtype == torch.bfloat16 and excess(got) <= TOL_BN_ATOL,
+                       f"bn_bf16: {key} ({ours[key].dtype}) beyond half a bf16 ulp of float64 "
+                       f"by {excess(got)}"))
+    for key, tol in (("dw", TOL_BN_SUMS), ("db", TOL_BN_SUMS), ("running_mean", TOL_BN_STATS),
+                     ("running_var", TOL_BN_STATS)):
+        rel = _rel_l2(ours[key].double(), exact[key])
+        result[key] = {"rel_l2_vs_float64": {"ours": rel,
+                                             "cudnn": _rel_l2(cudnn[key].double(), exact[key])},
+                       "rel_l2_vs_cudnn": _rel_l2(ours[key].double(), cudnn[key].double())}
+        checks.append((rel <= tol, f"bn_bf16: {key} rel-L2 {rel} from float64"))
+    emit({"phase": "parallel", "run": "bn_bf16", **result})
+    for ok, msg in checks:
+        check(ok, msg)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -2122,8 +2569,12 @@ def main() -> int:
         emit({"k2": _check_k2_all(K, g)})
         emit({"k2_sass": _sass_counts(K, "si_")})
         return 0
+    if sys.argv[1:] == ["--parallel-only"]:
+        # the data-parallel phase alone: the quick run for its own changes
+        emit({"parallel_launches": phase_parallel()})
+        return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
-          "--k4-backward-only and --k2-only")
+          "--k4-backward-only, --k2-only and --parallel-only")
     kernels = phase_kernels()
     phase_op_dispatch()
     by_path = {}
@@ -2131,6 +2582,7 @@ def main() -> int:
         by_path[f"{name}_serve"] = phase_serve(name)
         by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
     by_path["flagship_augment"] = phase_augment()
+    by_path["parallel"] = phase_parallel()
     rows = []
     for name, source, replaces in (
             ("window_attention", K1_SOURCE, K1_REPLACES),

@@ -9,8 +9,13 @@ memory and a non-blocking copy on a side stream, issued one batch ahead, so
 the copy of batch i+1 overlaps the step on batch i and the host never waits
 on a per-step blocking ``.to(device)``.
 
-The original's multi-process sharding (``process_shard``) is left out: the
-port trains in one process (ROADMAP, "Parallel").
+``process_shard=(process, count)`` is the multi-process mode of the
+original: every process computes the same global batch order (the
+constructor's arguments match across processes) and decodes only its rows
+of each batch (``parallel.mesh.local_rows``: with ``accum_steps``
+microbatches, its share of each). ``batch_size`` stays the global batch
+size. A batch whose microbatches do not split over ``count`` (a remainder)
+is yielded whole on every process and tagged ``_replicated``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import local_rows
 from .dataset import DepthDataset
 
 _ARRAYS = ("rgb", "depth")
@@ -77,6 +83,8 @@ class HostLoader:
         prefetch_depth: int = 2,
         cache: bool = False,
         device=None,
+        process_shard: Optional[tuple[int, int]] = None,
+        accum_steps: int = 1,
     ):
         self.dataset = dataset
         # None: numpy batches; a torch device: tensors on it (see module docstring).
@@ -99,6 +107,12 @@ class HostLoader:
         # (benchmarks/data_pipeline_bench.py: on one core the per-sample
         # decode is faster). The cache (above) dominates both after epoch 1.
         self._native_hw = "unprobed" if (os.cpu_count() or 1) > 1 else None
+        if process_shard is not None:
+            p, n = process_shard
+            if not (0 <= p < n):
+                raise ValueError(f"process_shard {process_shard}: need 0 <= id < count")
+        self.process_shard = process_shard
+        self.accum_steps = int(accum_steps)
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -110,7 +124,9 @@ class HostLoader:
             return len(self) * self.batch_size
         return len(self.indices)
 
-    def _batch_indices(self) -> list[np.ndarray]:
+    def _batch_indices(self) -> list[tuple[np.ndarray, bool]]:
+        """Batches as (indices, replicated) pairs; ``replicated`` marks a
+        process-sharded batch yielded whole on every process."""
         order = self.indices.copy()
         if self.shuffle:
             self._rng.shuffle(order)
@@ -119,7 +135,14 @@ class HostLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        return batches
+        if self.process_shard is None:
+            return [(b, False) for b in batches]
+        p, n = self.process_shard
+        out = []
+        for b in batches:
+            rows = local_rows(len(b), self.accum_steps, p, n)
+            out.append((b, True) if rows is None else (b[rows], False))
+        return out
 
     def _native_size(self):
         """Probe + cache the image size for the native batch decoder; None
@@ -201,8 +224,8 @@ class HostLoader:
         if not batches:
             return
         task_q: queue.Queue = queue.Queue()
-        for pos, idxs in enumerate(batches):
-            task_q.put((pos, idxs))
+        for pos, (idxs, replicated) in enumerate(batches):
+            task_q.put((pos, idxs, replicated))
         # Bound host memory: at most prefetch_depth + num_workers batches may be
         # decoded but not yet consumed.
         inflight = threading.Semaphore(self.prefetch_depth + self.num_workers)
@@ -216,11 +239,13 @@ class HostLoader:
             while not stop.is_set():
                 inflight.acquire()
                 try:
-                    pos, idxs = task_q.get_nowait()
+                    pos, idxs, replicated = task_q.get_nowait()
                 except queue.Empty:
                     inflight.release()
                     return
                 batch = self._assemble(idxs)
+                if replicated:
+                    batch["_replicated"] = True
                 with results_cv:
                     results[pos] = batch
                     results_cv.notify_all()

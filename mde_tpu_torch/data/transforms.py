@@ -63,21 +63,29 @@ JITTER = (0.2, 0.2, 0.2, 0.1)  # brightness, contrast, saturation, hue (src/main
 
 
 def preprocess_train(rgb_u8: torch.Tensor, depth: torch.Tensor, input_size=(448, 576),
-                     generator: torch.Generator | None = None, plain: bool = False):
+                     generator: torch.Generator | None = None, plain: bool = False,
+                     rows=None):
     """(B, H, W, 3) uint8 and (B, H, W) depth -> (rgb (B, 3, *input_size)
     float32, depth (B, *input_size)): half-pixel resize with the JAX rounding,
     colour jitter with draws from ``generator``, ImageNet normalisation.
 
     Both branches make the same generator calls and compute the same
     function: the kernel's plain version (``preprocess_u8_train_plain``) is
-    this plain branch with the draws made first.
+    this plain branch with the draws made first. ``rows`` (start, stop,
+    total): the batch is rows [start, stop) of a microbatch of ``total``
+    split over data-parallel processes; the draws are the whole microbatch's
+    and each row gets its own, as in one process.
     """
     size = _size(input_size)
     if plain or rgb_u8.device.type == "cpu":
         rgb = resize_half_pixel(to_float(rgb_u8).permute(0, 3, 1, 2), size)
-        rgb = normalize_imagenet(color_jitter(rgb, *JITTER, generator=generator)).contiguous()
+        rgb = normalize_imagenet(color_jitter(rgb, *JITTER, generator=generator,
+                                              rows=rows)).contiguous()
     else:
-        draws = color_jitter_draws(rgb_u8.shape[0], *JITTER, generator=generator)
+        draws = color_jitter_draws(rgb_u8.shape[0] if rows is None else rows[2], *JITTER,
+                                   generator=generator)
+        if rows is not None:
+            draws = [d[rows[0]:rows[1]] for d in draws]
         rgb = preprocess_u8_train(rgb_u8, pack_jitter_draws(*draws), size)
     return rgb, resize_depth(depth, size)
 
@@ -161,15 +169,31 @@ def pairaug_apply(rgb_u8: torch.Tensor, depth: torch.Tensor, draws: PairAugDraws
 
 
 def preprocess_pairaug(rgb_u8: torch.Tensor, depth: torch.Tensor, input_size=(448, 576),
-                       generator: Optional[torch.Generator] = None, plain: bool = False):
+                       generator: Optional[torch.Generator] = None, plain: bool = False,
+                       rows=None):
     """PairAug with draws from ``generator`` (``pairaug_draws``, then
-    ``pairaug_apply``). ``plain`` changes nothing: no kernel runs here."""
+    ``pairaug_apply``). ``plain`` changes nothing: no kernel runs here.
+    ``rows`` as in ``preprocess_train``: the draws and the noise are the whole
+    microbatch's, and the batch takes its rows of them."""
     del plain
-    return pairaug_apply(rgb_u8, depth, pairaug_draws(rgb_u8.shape[0], generator), input_size)
+    if rows is None:
+        return pairaug_apply(rgb_u8, depth, pairaug_draws(rgb_u8.shape[0], generator),
+                             input_size)
+    start, stop, total = rows
+    draws = pairaug_draws(total, generator)
+    fields = {k: (v[start:stop] if isinstance(v, torch.Tensor) else v)
+              for k, v in draws._asdict().items()}
+    fields["jitter"] = tuple(d[start:stop] for d in draws.jitter)
+    draws = PairAugDraws(**fields)
+    noise = None
+    if bool(draws.noise_gate.any()):
+        noise = standard_normal((total, 3, *_size(input_size)), draws.noise_seed,
+                                rgb_u8.device)[start:stop]
+    return pairaug_apply(rgb_u8, depth, draws, input_size, noise=noise)
 
 
 def make_train_pipeline(augmentation: bool, input_size):
-    """fn(rgb_u8, depth, generator, plain) -> (rgb, depth) per the config
+    """fn(rgb_u8, depth, generator, plain, rows) -> (rgb, depth) per the config
     switch (src/main.py:575-583): PairAug if ``augmentation`` else the
     default jitter path."""
     fn = preprocess_pairaug if augmentation else preprocess_train

@@ -162,12 +162,18 @@ def color_jitter_draws(b: int, brightness: float = 0.2, contrast: float = 0.2,
 
 
 def color_jitter(x, brightness: float = 0.2, contrast: float = 0.2, saturation: float = 0.2,
-                 hue: float = 0.1, generator: torch.Generator | None = None) -> torch.Tensor:
+                 hue: float = 0.1, generator: torch.Generator | None = None,
+                 rows=None) -> torch.Tensor:
     """Per-sample torchvision-style colour jitter on an NCHW batch, with the
     draws of ``color_jitter_draws``. The reference's default path uses
-    (0.2, 0.2, 0.2, 0.1) (src/main.py:580).
+    (0.2, 0.2, 0.2, 0.1) (src/main.py:580). ``rows`` (start, stop, total):
+    ``x`` is rows [start, stop) of a batch of ``total``, which the draws are
+    made for (one data-parallel process's share).
     """
-    draws = color_jitter_draws(x.shape[0], brightness, contrast, saturation, hue, generator)
+    b = x.shape[0] if rows is None else rows[2]
+    draws = color_jitter_draws(b, brightness, contrast, saturation, hue, generator)
+    if rows is not None:
+        draws = [d[rows[0]:rows[1]] for d in draws]
     return color_jitter_apply(x, *draws)
 
 

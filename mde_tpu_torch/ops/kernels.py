@@ -1063,3 +1063,25 @@ flash_attention.launches = 0  # float32 kernel
 flash_attention.bf16_launches = 0
 flash_attention.backward_launches = 0  # float32 backward kernel
 flash_attention.backward_bf16_launches = 0
+
+
+# Each kernel form's launch counter: (wrapper, attribute) by the form's name.
+LAUNCH_COUNTERS = {
+    "window_attention": (window_attention, "launches"),
+    "window_attention_bf16": (window_attention, "bf16_launches"),
+    "window_attention_backward": (window_attention, "backward_launches"),
+    "window_attention_backward_bf16": (window_attention, "bf16_backward_launches"),
+    "preprocess_u8": (preprocess_u8, "launches"),
+    "preprocess_u8_train": (preprocess_u8_train, "launches"),
+    "si_loss_sums": (si_loss_sums, "launches"),
+    "si_loss_sums_backward": (si_loss_sums, "backward_launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bf16": (flash_attention, "bf16_launches"),
+    "flash_attention_backward": (flash_attention, "backward_launches"),
+    "flash_attention_backward_bf16": (flash_attention, "backward_bf16_launches"),
+}
+
+
+def launch_counts() -> dict:
+    """Every kernel form's launches so far, by ``LAUNCH_COUNTERS``' names."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in LAUNCH_COUNTERS.items()}

@@ -1,0 +1,211 @@
+"""The multi-process runtime (port of mde_tpu/parallel/distributed.py).
+
+One process per card, joined by ``torch.distributed``: NCCL between cards,
+gloo on the CPU or where the caller names it (two ranks sharing one card,
+which NCCL refuses). The data contract is the JAX package's:
+
+- every process computes the same global batch order (same seed, same
+  shuffle) and decodes only its rows of each batch
+  (``HostLoader(process_shard=...)``; ``parallel.mesh.local_rows`` gives the
+  layout);
+- losses and metrics of a sharded batch are reduced across the processes
+  (``global_sum``, ``global_max``), so every process holds the same global
+  numbers and takes the same early-stopping branch;
+- gradients are averaged by ``DistributedDataParallel`` and BatchNorm's batch
+  statistics are global (``parallel.sync_batchnorm``), so a step of W ranks
+  is the one-process step on the global batch;
+- only process 0 writes checkpoints and logs; ``barrier`` keeps the others
+  from racing past a save.
+
+Launchers: the training CLI spawns one process per card itself; under
+torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) or with the ``MDE_DIST_*`` variables each process joins
+(``initialize_from_env``). A rank's card is ``cuda:{LOCAL_RANK}`` (the
+process id where ``LOCAL_RANK`` is unset).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# MDE_DIST_BACKEND names the backend (gloo or nccl); by default NCCL on
+# CUDA and gloo on the CPU.
+BACKENDS = ("gloo", "nccl")
+
+
+def local_rank() -> int:
+    """This process's index on its host: ``LOCAL_RANK``, else the process id
+    (every rank on one host), else 0."""
+    for name in ("LOCAL_RANK", "MDE_DIST_PROCESS_ID", "RANK"):
+        if os.environ.get(name):
+            return int(os.environ[name])
+    return 0
+
+
+def rank_device(device: str, world: Optional[int] = None) -> torch.device:
+    """The card of this rank for the tools' ``--device``: ``cpu`` stays the
+    CPU, ``cuda`` becomes ``cuda:{local_rank()}`` when more than one process
+    runs, and ``cuda:N`` keeps card N for every rank (cards shared: gloo
+    only). A rank whose card is not visible raises: it never falls back."""
+    dev = torch.device(device)
+    world = process_count() if world is None else world
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--device {device}: no CUDA device is visible")
+    if dev.index is None:
+        if world <= 1:
+            return dev
+        dev = torch.device("cuda", local_rank())
+    if dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"rank {local_rank()}: card {dev} is not visible "
+                           f"({torch.cuda.device_count()} visible)")
+    return dev
+
+
+def initialize(init_method: str, num_processes: int, process_id: int,
+               device: torch.device, backend: Optional[str] = None) -> None:
+    """Join the process group (idempotent). ``backend`` None takes NCCL for a
+    CUDA ``device`` and gloo for the CPU; NCCL is given the rank's card
+    (``torch.cuda.set_device`` first). A backend that cannot start raises."""
+    if dist.is_initialized():
+        return
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"NCCL needs a CUDA device, got {device}")
+    kwargs = {}
+    if device.type == "cuda":
+        if device.index is None:  # a world of one given "cuda"
+            device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+        if backend == "nccl":
+            kwargs["device_id"] = device
+    dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
+                            rank=process_id, **kwargs)
+
+
+def initialize_from_env(device: str = "cpu") -> bool:
+    """Join the process group the environment describes; returns True if it
+    did (a multi-process run), False where no launcher variable is set.
+
+    - ``MDE_DIST_COORDINATOR`` (host:port of process 0), ``MDE_DIST_NUM_PROCESSES``,
+      ``MDE_DIST_PROCESS_ID``; ``MDE_DIST_CPU`` forces the CPU and gloo;
+    - else torchrun's ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``;
+    - ``MDE_DIST_BACKEND`` names the backend in either case.
+
+    ``device`` is the tool's ``--device``; the rank's card comes from
+    ``rank_device``.
+    """
+    env = os.environ
+    if env.get("MDE_DIST_COORDINATOR"):
+        init_method = f"tcp://{env['MDE_DIST_COORDINATOR']}"
+        n, p = int(env["MDE_DIST_NUM_PROCESSES"]), int(env["MDE_DIST_PROCESS_ID"])
+        if env.get("MDE_DIST_CPU"):
+            device = "cpu"
+    elif env.get("WORLD_SIZE") and env.get("RANK"):
+        init_method = "env://"
+        n, p = int(env["WORLD_SIZE"]), int(env["RANK"])
+    else:
+        return False
+    initialize(init_method, n, p, rank_device(device, n), env.get("MDE_DIST_BACKEND") or None)
+    return True
+
+
+def shutdown() -> None:
+    """Leave the process group, if this process joined one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def process_count() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_primary() -> bool:
+    """True on the process that owns checkpoint and log side effects."""
+    return process_index() == 0
+
+
+def is_multiprocess() -> bool:
+    return process_count() > 1
+
+
+def barrier(name: str = "mde_barrier") -> None:
+    """Block until every process reaches this point (no-op in one process).
+    ``name`` says in a traceback which barrier hung."""
+    del name
+    if is_multiprocess():
+        dist.barrier()
+
+
+def local_row_block(global_rows: int, process: Optional[int] = None,
+                    count: Optional[int] = None) -> tuple[int, int]:
+    """[start, stop) of this process's contiguous row block of a global
+    batch; ``process``/``count`` default to the runtime's values."""
+    p = process_index() if process is None else process
+    n = process_count() if count is None else count
+    if global_rows % n:
+        raise ValueError(f"global batch of {global_rows} rows does not split over {n} processes")
+    per = global_rows // n
+    return p * per, (p + 1) * per
+
+
+class _GlobalSum(torch.autograd.Function):
+    """Sum over the processes; the backward passes the gradient through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the processes, differentiable.
+
+    The caller computes the same function of the sum on every process, so
+    each process's gradient of that sum is the same, and the gradient of its
+    own share is that gradient unchanged: the backward communicates nothing.
+    Each process's backward is then the global loss's through its own rows;
+    ``DistributedDataParallel`` averages over the processes, so the train
+    step scales the loss by the process count.
+    """
+    return _GlobalSum.apply(x) if is_multiprocess() else x
+
+
+def global_max(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max over the processes (no gradient)."""
+    out = x.detach().clone()
+    if is_multiprocess():
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
+def all_reduce_floats(values, device) -> list[float]:
+    """Python floats summed over the processes, in float64 on ``device``."""
+    t = torch.tensor(list(values), dtype=torch.float64, device=device)
+    if is_multiprocess():
+        dist.all_reduce(t)
+    return t.tolist()
+
+
+def broadcast_floats(values, device) -> list[float]:
+    """Process 0's Python floats on every process, in float64 on ``device``."""
+    t = torch.tensor(list(values), dtype=torch.float64, device=device)
+    if is_multiprocess():
+        dist.broadcast(t, 0)
+    return t.tolist()

@@ -1,8 +1,11 @@
 """Shared plumbing for the entry points (port of mde_tpu/tools/common.py):
 config resolution, path layout, loaders, model bootstrapping.
 
-There is no compilation cache and no multi-host runtime to set up: PyTorch
-runs eagerly, and multi-process serving or training is not ported yet.
+There is no compilation cache to set up: PyTorch runs eagerly. A process
+started by a launcher (torchrun, the ``MDE_DIST_*`` variables, or the
+training CLI's own spawn) joins its process group in ``parse_config``
+(``parallel.distributed.initialize_from_env``), and ``build_loaders`` gives
+it its rows of every batch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from ..core import config as config_lib
 from ..data.dataset import DepthDataset, split_train_val
 from ..data.loader import HostLoader
 from ..models.factory import build_model
+from ..parallel import distributed
 from ..train.checkpoint import load_checkpoint
 
 
@@ -57,7 +61,8 @@ def _override(cfg, item: str) -> None:
 def parse_config(description: str, extra=None, argv=None):
     """Parse --config (YAML; the built-in flagship defaults when omitted),
     --device, --data-dir and any number of --set KEY=VALUE overrides, plus
-    whatever ``extra(parser)`` adds. ``argv`` defaults to ``sys.argv[1:]``."""
+    whatever ``extra(parser)`` adds. ``argv`` defaults to ``sys.argv[1:]``.
+    Joins the process group a launcher's environment describes."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", default=None,
                    help="path to config.yaml (default: the built-in flagship config)")
@@ -73,6 +78,9 @@ def parse_config(description: str, extra=None, argv=None):
         cfg.paths.data_dir = args.data_dir
     for item in args.set:
         _override(cfg, item)
+    if os.environ.get("MDE_DIST_CPU"):
+        args.device = "cpu"  # every process of the run on the CPU, over gloo
+    distributed.initialize_from_env(args.device)
     return cfg, args
 
 
@@ -102,10 +110,14 @@ def resolve_paths(cfg):
 def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
     """Train/val loaders over the 85/15 ``split_train_val`` of the train list,
     and a test loader when the test list exists; batches land on ``device``
-    (pinned, non-blocking copies on a CUDA device) or stay numpy (None)."""
+    (pinned, non-blocking copies on a CUDA device) or stay numpy (None).
+    Under W processes each loader yields this process's rows (the train
+    loader in the layout of ``framework.grad_accum_steps`` microbatches)."""
     fw = cfg.framework
     bs = int(cfg.training.batch_size)
     workers = int(fw.num_workers)
+    shard = ((distributed.process_index(), distributed.process_count())
+             if distributed.is_multiprocess() else None)
     loaders = {}
     if train:
         full = DepthDataset(paths["train_dir"], paths["train_list"], has_gt=True)
@@ -113,12 +125,14 @@ def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
         cache = bool(fw.get("cache_dataset", False))
         loaders["train"] = HostLoader(
             full, tr_idx, bs, shuffle=True, drop_last=bool(fw.drop_last), num_workers=workers,
-            seed=fw.seed, prefetch_depth=int(fw.prefetch_depth), cache=cache, device=device)
+            seed=fw.seed, prefetch_depth=int(fw.prefetch_depth), cache=cache, device=device,
+            process_shard=shard, accum_steps=int(fw.get("grad_accum_steps", 1)))
         loaders["val"] = HostLoader(full, va_idx, bs, shuffle=False, num_workers=workers,
-                                    cache=cache, device=device)
+                                    cache=cache, device=device, process_shard=shard)
     if os.path.exists(paths["test_list"]):
         test_ds = DepthDataset(paths["test_dir"], paths["test_list"], has_gt=False)
-        loaders["test"] = HostLoader(test_ds, batch_size=bs, num_workers=workers, device=device)
+        loaders["test"] = HostLoader(test_ds, batch_size=bs, num_workers=workers, device=device,
+                                     process_shard=shard)
     return loaders
 
 

@@ -10,18 +10,32 @@ and a test loader, the configured model with weights from the seed (resumed
 from ``best_model_{name}.pth`` with its optimizer and early-stopping state
 when ``training.resume_training.resume``), AdamW, ``fit`` with early stopping,
 best checkpoint and wandb-schema logging, the optional 7-metric evaluation,
-then the 426x560 test predictions. Runs on one device: the mesh of the JAX
-tool is not ported (ROADMAP, "Parallel"). ``--device cuda`` without a card
-fails rather than training on the CPU.
+then the 426x560 test predictions. ``--device cuda`` without a card fails
+rather than training on the CPU.
+
+Data parallel, as the JAX tool's ('data', 'model') mesh on its data axis:
+W = ``framework.mesh.data`` (-1: every visible card) clamped to divide
+``training.batch_size`` (``parallel.mesh.data_world``). With W > 1 and no
+launcher in the environment, the tool starts W processes of itself, one a
+card over NCCL (gloo on the CPU, or where ``MDE_DIST_BACKEND=gloo`` names
+it, as for ranks that share one named card ``--device cuda:N``), waits for
+them and exits non-zero if any fails. Under torchrun or the ``MDE_DIST_*``
+variables each process joins instead. Each rank trains under
+``DistributedDataParallel`` with the cross-process BatchNorm on its rows of
+every batch; rank 0 alone logs and writes the checkpoint. The model axis
+(``framework.mesh.model > 1``) is not ported (ROADMAP, Queue 1, item 5b).
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import torch
 
+from ..parallel import distributed, launch
+from ..parallel.mesh import data_parallel, data_world
 from ..train.checkpoint import checkpoint_path, load_state_dict, load_training_checkpoint
 from ..train.logging import ExperimentLogger
 from ..train.trainer import evaluate_full_suite, fit, generate_test_predictions, make_optimizer
@@ -29,11 +43,21 @@ from .common import (bootstrap_model, build_loaders, parse_config, resolve_paths
                      set_float32_precision, tool_device)
 
 
-def main(argv=None) -> dict:
-    """Run the training flow; returns ``fit``'s history."""
+def main(argv=None) -> dict | None:
+    """Run the training flow; returns ``fit``'s history (None in the process
+    that started the ranks of a data-parallel run)."""
     cfg, args = parse_config("Train a depth model (PyTorch port)", argv=argv)
     set_float32_precision()
     device = tool_device(args.device)
+    world = data_world(cfg, args.device)
+    if world > 1 and not distributed.is_multiprocess():
+        print(f"Starting {world} data-parallel processes")
+        rc = launch.spawn("mde_tpu_torch.tools.main", sys.argv[1:] if argv is None else argv,
+                          world, cpu=device.type == "cpu")
+        if rc:
+            raise SystemExit(f"a data-parallel process exited with {rc}")
+        return None
+    device = distributed.rank_device(args.device)
     paths = resolve_paths(cfg)
     os.makedirs(paths["results_dir"], exist_ok=True)
     os.makedirs(paths["predictions_dir"], exist_ok=True)
@@ -57,11 +81,13 @@ def main(argv=None) -> dict:
                 "min_delta": cfg.training.early_stopping.min_delta,
             },
         },
-        disabled=bool(cfg.experiment.wandb_disable),
+        disabled=bool(cfg.experiment.wandb_disable) or not distributed.is_primary(),
         log_dir=paths["results_dir"],
     )
     print(f"Device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+          + (f", rank {distributed.process_index()} of {world} "
+             f"({torch.distributed.get_backend()})" if world > 1 else ""))
 
     loaders = build_loaders(cfg, paths, train=True, device=device)
     print(f"Train size: {loaders['train'].num_samples}, "
@@ -90,9 +116,10 @@ def main(argv=None) -> dict:
               f"(epoch {es_state['best_epoch']}), counter={es_state['es_counter']}")
 
     print("Starting training...")
-    history = fit(model, cfg, optimizer, loaders["train"], loaders["val"], paths["results_dir"],
-                  logger=logger, start_epoch=start_epoch, seed=int(cfg.framework.seed),
-                  **es_state)
+    trained = data_parallel(model, device) if world > 1 else model
+    history = fit(trained, cfg, optimizer, loaders["train"], loaders["val"],
+                  paths["results_dir"], logger=logger, start_epoch=start_epoch,
+                  seed=int(cfg.framework.seed), **es_state)
 
     if bool(cfg.opt.get("evaluate_best_model", False)):
         print("Evaluating model on validation set...")
@@ -100,13 +127,15 @@ def main(argv=None) -> dict:
         print("\nValidation Metrics:")
         for name, value in metrics.items():
             print(f"{name}: {value:.4f}")
-        with open(os.path.join(paths["results_dir"], "validation_metrics.txt"), "w") as f:
-            for name, value in metrics.items():
-                f.write(f"{name}: {value:.4f}\n")
+        if distributed.is_primary():
+            with open(os.path.join(paths["results_dir"], "validation_metrics.txt"), "w") as f:
+                for name, value in metrics.items():
+                    f.write(f"{name}: {value:.4f}\n")
 
     if "test" in loaders:
         print("Generating predictions for test set...")
         generate_test_predictions(model, cfg, loaders["test"], paths["predictions_dir"])
+    distributed.barrier("predictions_written")
     print(f"Results saved to {paths['results_dir']}")
     print(f"All test depth map predictions saved to {paths['predictions_dir']}")
     return history

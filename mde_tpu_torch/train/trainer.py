@@ -16,8 +16,9 @@ mde_tpu/train/trainer.py).
 Mixed precision: ``framework.compute_dtype: bfloat16`` runs the forward under
 ``torch.autocast`` over float32 master weights; autocast keeps norms in
 float32 where the JAX package casts the parameters and runs its norms in
-bf16 (trainer.py:195-204). The loss is float32 (``pred.float()``). On the
-CPU, bfloat16 becomes float32, as in the JAX package.
+bf16 (trainer.py:195-204). The loss is float32 (``pred.float()``; float64
+for a float64 model). On the CPU, bfloat16 becomes float32, as in the JAX
+package.
 
 BatchNorm keeps torch's semantics: the running variance is updated with the
 unbiased batch variance, n/(n-1) times flax's biased one (n = B*H*W at the
@@ -26,13 +27,22 @@ layer), as in the reference the checkpoints come from.
 Randomness: each train step takes an explicit CPU ``torch.Generator``; ``fit``
 derives one per step from (seed, epoch, iteration) with ``step_generator``.
 
-Left out: what the JAX ``fit`` does only for multi-process or mesh runs
-(process-sharded batches, replicated remainders, barriers, primary-only
-writes); see ROADMAP, Queue 1, "Parallel".
+Data parallel (W processes, ``parallel/``), the JAX package's multi-process
+contract (mde_tpu/train/trainer.py:344-349): the model comes wrapped by
+``parallel.mesh.data_parallel`` (``DistributedDataParallel``, cross-process
+BatchNorm), each batch holds this process's rows of the global batch
+(``HostLoader(process_shard=...)``) or, tagged ``_replicated``, all of them.
+Every process makes the draws of the global microbatch from the same
+generator and keeps its rows'; the losses and metrics are the global
+batch's, the same on every process, so a step of W processes is the
+one-process step on the global batch, and every process takes the same
+early-stopping branch. Process 0 alone logs and writes the checkpoint,
+then a barrier; every process reloads the best weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -45,6 +55,9 @@ from ..losses.losses import combined_loss
 from ..metrics.metrics import evaluation_metrics, full_metric_suite
 from ..ops.kernels import preprocess_u8_plain, si_loss_sums, si_loss_sums_plain
 from ..ops.resize import resize_bilinear
+from ..parallel import distributed as dist
+from ..parallel.mesh import unwrap
+from ..parallel.sync_batchnorm import local_statistics
 from .checkpoint import (checkpoint_path, load_state_dict, load_training_checkpoint,
                          save_training_checkpoint)
 from .logging import ExperimentLogger
@@ -85,25 +98,31 @@ def make_optimizer(model, cfg) -> torch.optim.AdamW:
 
 
 def forward_backward(model, cfg, rgb, depth, dtype=torch.float32, plain: bool = False,
-                     scale: float = 1.0):
+                     scale: float = 1.0, sharded: bool = False):
     """Forward in train mode, ``combined_loss``, backward into ``.grad``.
 
     rgb: (B, 3, H, W) normalised float32; depth: (B, H, W). ``dtype`` is the
     autocast compute type (float32: none). ``plain=True`` runs the kernels'
     plain versions on any device. The backward is of ``scale * loss`` (the
-    microbatch share under accumulation). Returns the detached (loss, parts).
+    microbatch share under accumulation). ``sharded``: the rows are this
+    process's share of a global batch, and the loss is the global batch's.
+    Returns the detached (loss, parts).
     """
     model.train()
     with torch.autocast(rgb.device.type, dtype=dtype, enabled=dtype != torch.float32):
         pred = model(rgb, plain=plain)
-    total, parts = combined_loss(pred.float(), depth, cfg, rgb=rgb,
-                                 sums=si_loss_sums_plain if plain else si_loss_sums)
+    # the loss in float32, or float64 for a float64 model
+    pred = pred if pred.dtype == torch.float64 else pred.float()
+    total, parts = combined_loss(pred, depth, cfg, rgb=rgb,
+                                 sums=si_loss_sums_plain if plain else si_loss_sums,
+                                 sharded=sharded)
     (total * scale).backward()
     return total.detach(), {k: v.detach() for k, v in parts.items()}
 
 
 def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = False) -> Callable:
-    """step(rgb_u8 (B, H, W, 3) uint8, depth_raw (B, H, W), generator) -> metrics.
+    """step(rgb_u8 (B, H, W, 3) uint8, depth_raw (B, H, W), generator,
+    replicated=False) -> metrics.
 
     One optimizer update a call. ``accum_steps > 1`` splits the batch into
     that many microbatches, each through the pipeline, forward and backward
@@ -113,10 +132,24 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = F
     metrics are 0-d device tensors, the microbatch means. ``plain=True``
     runs the kernels' plain versions on any device, in the pipeline and in
     the forward and backward.
+
+    Under W processes (``model`` from ``parallel.mesh.data_parallel``) the
+    batch is this process's rows in ``parallel.mesh.local_rows``'s layout:
+    microbatch i is its i-th share, the pipeline makes the draws of the
+    global microbatch and keeps its rows', the loss is the global
+    microbatch's, and the gradient reduction runs once, after the last
+    microbatch (``no_sync`` before). ``replicated``: the batch is whole on
+    every process (a remainder that does not split), with local BN
+    statistics and local losses.
     """
     pipeline = make_train_pipeline(bool(cfg.augmentation), cfg.framework.input_size)
+    module = unwrap(model)
+    no_sync = model.no_sync if module is not model else contextlib.nullcontext
+    if dist.is_multiprocess() and module is model:
+        raise ValueError("a multi-process train step needs the model from "
+                         "parallel.mesh.data_parallel")
 
-    def step(rgb_u8, depth_raw, generator: torch.Generator) -> dict:
+    def step(rgb_u8, depth_raw, generator: torch.Generator, replicated: bool = False) -> dict:
         device = _device(model)
         dtype = compute_dtype(cfg, device)
         rgb_u8 = torch.as_tensor(rgb_u8).to(device)
@@ -125,14 +158,22 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = F
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
         m = b // accum_steps
+        world, rank = dist.process_count(), dist.process_index()
+        sharded = world > 1 and not replicated
+        rows = (rank * m, (rank + 1) * m, world * m) if sharded else None
+        # each process's backward is of the global loss through its rows;
+        # DistributedDataParallel averages them
+        scale = (world if sharded else 1) / accum_steps
         optimizer.zero_grad(set_to_none=True)
         metrics = []
-        for i in range(accum_steps):
-            rgb, depth = pipeline(rgb_u8[i * m:(i + 1) * m], depth_raw[i * m:(i + 1) * m],
-                                  generator=generator, plain=plain)
-            loss, parts = forward_backward(model, cfg, rgb, depth, dtype, plain=plain,
-                                           scale=1.0 / accum_steps)
-            metrics.append({"loss": loss, **parts})
+        with local_statistics(module) if world > 1 and replicated else contextlib.nullcontext():
+            for i in range(accum_steps):
+                rgb, depth = pipeline(rgb_u8[i * m:(i + 1) * m], depth_raw[i * m:(i + 1) * m],
+                                      generator=generator, plain=plain, rows=rows)
+                with no_sync() if i < accum_steps - 1 else contextlib.nullcontext():
+                    loss, parts = forward_backward(model, cfg, rgb, depth, dtype, plain=plain,
+                                                   scale=scale, sharded=sharded)
+                metrics.append({"loss": loss, **parts})
         optimizer.step()
         return {k: torch.stack([m_[k] for m_ in metrics]).mean() for k in metrics[0]}
 
@@ -146,20 +187,26 @@ def _eval_forward(model, cfg, rgb_u8, depth_raw):
 
 
 def make_eval_step(model, cfg) -> Callable:
-    """step(rgb_u8, depth_raw) -> {"loss", *LOSS_KEYS}: eval mode, float32."""
+    """step(rgb_u8, depth_raw, replicated=False) -> {"loss", *LOSS_KEYS}: eval
+    mode, float32. Under W processes the losses of a batch that is not
+    ``replicated`` are the global batch's."""
+    model = unwrap(model)
 
-    def step(rgb_u8, depth_raw) -> dict:
+    def step(rgb_u8, depth_raw, replicated: bool = False) -> dict:
         model.eval()
         with torch.inference_mode():
             rgb, depth, pred = _eval_forward(model, cfg, rgb_u8, depth_raw)
-            total, parts = combined_loss(pred, depth, cfg, rgb=rgb)
+            total, parts = combined_loss(pred, depth, cfg, rgb=rgb,
+                                         sharded=dist.is_multiprocess() and not replicated)
         return {"loss": total, **parts}
 
     return step
 
 
 def make_metric_step(model, cfg) -> Callable:
-    """Eval-protocol metrics (src/evaluation.py:143-176) of one batch."""
+    """Eval-protocol metrics (src/evaluation.py:143-176) of one batch (this
+    process's rows)."""
+    model = unwrap(model)
     base = float(cfg.framework.eval_base_thres)
     n_delta = int(cfg.framework.eval_n_delta)
 
@@ -201,6 +248,23 @@ def _on(device, batch: dict, key: str) -> torch.Tensor:
     return torch.as_tensor(batch[key]).to(device)
 
 
+def _replicated(batch: dict) -> dict:
+    """The steps' ``replicated`` keyword for a batch tagged ``_replicated``
+    (none for any other batch)."""
+    return {"replicated": True} if batch.get("_replicated", False) else {}
+
+
+def _global_rows(batch: dict) -> int:
+    """Rows of the global batch this process's batch is part of: its own
+    times W, except a ``_replicated`` batch, which holds them all (the
+    ``HostLoader(process_shard=...)`` contract). Losses and metrics are
+    global-batch means, so epoch averages weight by global rows."""
+    n = int(batch["rgb"].shape[0])
+    if dist.is_multiprocess() and not batch.get("_replicated", False):
+        n *= dist.process_count()
+    return n
+
+
 def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
         logger: Optional[ExperimentLogger] = None, start_epoch: int = 0, seed: int = 0,
         log_every: int = 50, best_val: float = float("inf"), best_epoch: Optional[int] = None,
@@ -213,8 +277,16 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
     and the best weights reloaded at the end. ``best_val``/``best_epoch``/
     ``es_counter`` seed the early-stopping state on resume. Returns the
     history (train_loss, val_loss, train_time, n_train per epoch).
+
+    Under W processes (module docstring) the loaders hold process-sharded
+    batches and ``model`` comes from ``parallel.mesh.data_parallel``; the
+    epoch's loss sums are process 0's on every process, so the histories and
+    early-stopping decisions are identical; process 0 alone logs and writes
+    the checkpoint, and the others wait for it at a barrier.
     """
     logger = logger or ExperimentLogger(disabled=True)
+    if not dist.is_primary():
+        logger = ExperimentLogger(disabled=True)
     device = _device(model)
     accum = int(cfg.framework.get("grad_accum_steps", 1))
     bs = getattr(train_loader, "batch_size", None)
@@ -274,14 +346,15 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
             pending.clear()
 
         for it, batch in enumerate(train_loader):
-            bsz = int(batch["rgb"].shape[0])
+            bsz = _global_rows(batch)
             metrics = train_step(_on(device, batch, "rgb"), _on(device, batch, "depth"),
-                                 step_generator(seed, epoch, it))
+                                 step_generator(seed, epoch, it), **_replicated(batch))
             n_train += bsz
             pending.append((bsz, metrics))
             if len(pending) >= log_every:
                 flush()
         flush()
+        sums = dict(zip(sums, dist.broadcast_floats(sums.values(), device)))
         train_loss = sums["loss"] / max(n_train, 1)
         train_parts = {k: sums[k] / max(n_train, 1) for k in LOSS_KEYS}
         history["train_time"].append(time.time() - t0)
@@ -291,11 +364,13 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
         val_sums = dict.fromkeys(("loss",) + LOSS_KEYS, 0.0)
         n_val = 0
         for batch in val_loader:
-            bsz = int(batch["rgb"].shape[0])
-            m = eval_step(_on(device, batch, "rgb"), _on(device, batch, "depth"))
+            bsz = _global_rows(batch)
+            m = eval_step(_on(device, batch, "rgb"), _on(device, batch, "depth"),
+                          **_replicated(batch))
             for k, v in zip(val_sums, torch.stack([m[k] for k in val_sums]).tolist()):
                 val_sums[k] += v * bsz
             n_val += bsz
+        val_sums = dict(zip(val_sums, dist.broadcast_floats(val_sums.values(), device)))
         val_loss = val_sums["loss"] / max(n_val, 1)
         val_parts = {k: val_sums[k] / max(n_val, 1) for k in LOSS_KEYS}
 
@@ -309,12 +384,14 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
         # ---- early stopping + best checkpoint (src/main.py:200-230) ----
         if val_loss < best_val - min_delta:
             best_val, best_epoch, counter = val_loss, epoch, 0
-            save_training_checkpoint(
-                ckpt_path, model, optimizer, epoch=epoch + 1, best_val_loss=best_val,
-                best_epoch=best_epoch, early_stopping_counter=counter, train_loss=train_loss,
-                val_loss=val_loss,
-                config={"model_name": model_name, "num_epochs": num_epochs,
-                        "early_stopping": {"patience": patience, "min_delta": min_delta}})
+            if dist.is_primary():
+                save_training_checkpoint(
+                    ckpt_path, unwrap(model), optimizer, epoch=epoch + 1,
+                    best_val_loss=best_val, best_epoch=best_epoch,
+                    early_stopping_counter=counter, train_loss=train_loss, val_loss=val_loss,
+                    config={"model_name": model_name, "num_epochs": num_epochs,
+                            "early_stopping": {"patience": patience, "min_delta": min_delta}})
+            dist.barrier("best_checkpoint_saved")
             print(f"New best model saved at epoch {epoch + 1} with validation loss: {val_loss:.4f}")
         else:
             counter += 1
@@ -336,14 +413,16 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
     print(f"\nBest model was from epoch {best_epoch + 1} with validation loss: {best_val:.4f}")
     logger.finish()
     if os.path.exists(ckpt_path):  # reload the best weights (src/main.py:250)
-        load_state_dict(model, load_training_checkpoint(ckpt_path)["model_state_dict"])
+        load_state_dict(unwrap(model), load_training_checkpoint(ckpt_path)["model_state_dict"])
     return history
 
 
 def evaluate(model, cfg, loader, n_samples: Optional[int] = None) -> dict:
     """Standalone metric evaluation (src/evaluation.py:136-185): batch-weighted
     SI-RMSE / AbsRel / delta averages over the first ``n_samples``, with the
-    reference's excess-sample correction on the final batch."""
+    reference's excess-sample correction on the final batch. Under W
+    processes each batch's metrics are the global batch's (the mean of the
+    processes' equal shares)."""
     metric_step = make_metric_step(model, cfg)
     device = _device(model)
     totals: dict[str, float] = {}
@@ -351,9 +430,12 @@ def evaluate(model, cfg, loader, n_samples: Optional[int] = None) -> dict:
     for batch in loader:
         if n_samples is not None and processed >= n_samples:
             break
-        bsz = int(batch["rgb"].shape[0])
+        bsz = _global_rows(batch)
         m = metric_step(_on(device, batch, "rgb"), _on(device, batch, "depth"))
-        m = dict(zip(m, torch.stack(list(m.values())).tolist()))
+        values = torch.stack(list(m.values())).tolist()
+        if dist.is_multiprocess() and not batch.get("_replicated", False):
+            values = [v / dist.process_count() for v in dist.all_reduce_floats(values, device)]
+        m = dict(zip(m, values))
         for k, v in m.items():
             totals[k] = totals.get(k, 0.0) + v * bsz
         processed += bsz
@@ -367,7 +449,9 @@ def evaluate(model, cfg, loader, n_samples: Optional[int] = None) -> dict:
 
 def evaluate_full_suite(model, cfg, loader) -> dict:
     """The in-train 7-metric suite with the reference's final normalisation
-    (src/main.py:372-392)."""
+    (src/main.py:372-392); under W processes each batch's sums are the
+    global batch's."""
+    model = unwrap(model)
     device = _device(model)
     sums: dict[str, float] = {}
     n = 0
@@ -378,9 +462,12 @@ def evaluate_full_suite(model, cfg, loader) -> dict:
                                            _on(device, batch, "depth"))
             pred = resize_bilinear(pred, depth.shape[-2:], align_corners=True)
             out = full_metric_suite(pred, depth)
-        for k, v in zip(out, torch.stack([v.double() for v in out.values()]).tolist()):
+        values = torch.stack([v.double() for v in out.values()]).tolist()
+        if dist.is_multiprocess() and not batch.get("_replicated", False):
+            values = dist.all_reduce_floats(values, device)
+        for k, v in zip(out, values):
             sums[k] = sums.get(k, 0.0) + v
-        n += int(batch["rgb"].shape[0])
+        n += _global_rows(batch)
     denom = max(n * int(np.prod([int(s) for s in cfg.framework.input_size])), 1)
     return {
         "MAE": sums["mae_sum"] / denom,
@@ -395,12 +482,16 @@ def evaluate_full_suite(model, cfg, loader) -> dict:
 
 def generate_test_predictions(model, cfg, loader, predictions_dir: str) -> int:
     """Save one native-size .npy prediction an image, named by the second
-    list-file token (src/util.py:292-328). Returns the number written."""
+    list-file token (src/util.py:292-328). Returns the number this process
+    wrote: under W processes each writes its own rows, and process 0 alone a
+    batch that runs replicated (mde_tpu/train/trainer.py:644-677)."""
     os.makedirs(predictions_dir, exist_ok=True)
-    predict_step = make_predict_step(model, cfg)
+    predict_step = make_predict_step(unwrap(model), cfg)
     device = _device(model)
     written = 0
     for batch in loader:
+        if batch.get("_replicated", False) and not dist.is_primary():
+            continue
         preds = predict_step(_on(device, batch, "rgb")).cpu().numpy()
         for i, name in enumerate(batch["names"]):
             np.save(os.path.join(predictions_dir, name.split(" ")[1]), preds[i])

@@ -4,9 +4,9 @@ The GPU machine has no JAX, and may lack PIL. A fresh interpreter with an
 import hook that refuses ``jax``, ``jaxlib``, ``flax``, ``optax``,
 ``mde_tpu``, ``PIL`` and ``triton`` imports every module of
 ``mde_tpu_torch`` (Depth-Anything-V2, K4's, the evaluation, prediction, CSV
-and visualisation tools, the profiling helpers, the export module, its CLI
-and the conv+BN folding among them, and the kernels' ``torch.library`` ops
-registered; matplotlib,
+and visualisation tools, the profiling helpers, the export module, its CLI,
+the conv+BN folding and the data-parallel modules among them, and the
+kernels' ``torch.library`` ops registered; matplotlib,
 which imports PIL, only when a figure is drawn), builds DA-V2-S
 through the factory and runs it on a small image, then writes a synthetic
 dataset and decodes it through the loader (the zlib PNG writer and reader,
@@ -41,7 +41,11 @@ SCRIPT = textwrap.dedent('''
                                     "mde_tpu_torch.train.profiling",
                                     "mde_tpu_torch.train.export",
                                     "mde_tpu_torch.tools.export_model",
-                                    "mde_tpu_torch.nn.fuse"))
+                                    "mde_tpu_torch.nn.fuse",
+                                    "mde_tpu_torch.parallel.distributed",
+                                    "mde_tpu_torch.parallel.mesh",
+                                    "mde_tpu_torch.parallel.sync_batchnorm",
+                                    "mde_tpu_torch.parallel.launch"))
     assert "matplotlib" not in sys.modules
     import torch
     assert all(hasattr(torch.ops.mde_tpu, op)
@@ -70,4 +74,4 @@ def test_port_imports_and_loads_data_without_jax_pil_or_triton():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
                           cwd=Path(__file__).resolve().parent.parent, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 45  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 50  # every module of the package was imported
