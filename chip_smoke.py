@@ -5,12 +5,14 @@ paths on one CUDA card.
     python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
     python3 chip_smoke.py --k2-only            # K2's checks and times alone
     python3 chip_smoke.py --parallel-only      # the data-parallel phase alone
+    python3 chip_smoke.py --zoo-only           # the zoo phase alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
 (DINOv2 ViT-S/14 trunk + DPT head at 448x588, selected by the two ``--set``
-overrides in ``DA2_SETS``). Every LayerScale gamma is drawn in [0.2, 0.8]:
-fresh ones are 1e-5 and would hide what the attention computes.
+overrides in ``DA2_SETS``); then the rest of the model zoo (phase 9). Every
+LayerScale gamma is drawn in [0.2, 0.8]: fresh ones are 1e-5 and would hide
+what the attention computes.
 
 Phases, each printing JSON lines:
   1. device   the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -48,7 +50,10 @@ Phases, each printing JSON lines:
               below, at and one above 64 and 128 rows) against autograd
               through the plain version, with each pass's profiler time,
               ptxas's registers and spills and the launch plan (rows and
-              shared bytes a block, blocks an SM) at DA-V2-S's shape;
+              shared bytes a block, blocks an SM) at DA-V2-S's shape; K4
+              in both directions also at DPT_Large's and DPT_Hybrid's
+              training shapes ((4, 1009, 16|12, 64), profiled, a row's
+              ``dpt`` entry);
   4. serve    for each model: a checkpoint behind the port's HTTP server,
               built with both TF32 flags at torch's defaults (the server must
               turn them off), answering concurrent .npy requests with no K1
@@ -102,7 +107,19 @@ Phases, each printing JSON lines:
               serves it over HTTP to concurrent clients. Before the models,
               op_dispatch: the host us of a call through each torch.library
               op against its CUDA implementation called directly.
-  9. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
+  9. zoo      the rest of the factory's models at full width and 448x576,
+              each selected by its ``--set``s (``ZOO``): MiDaS-small,
+              MiDaS-small + LocalBins + DGR, the flagship + LocalBins,
+              U-Net, MiDaS (ResNeXt101), DPT_Large and DPT_Hybrid. Serve:
+              build_service at buckets (1, 2) over HTTP, two frames, the
+              replies and the kernels' predict step against the
+              plain-version one, host ms by bucket. Train: two float32 and
+              two bf16 train steps at batch 4 against the same steps with
+              plain=True on the same weights and draws (losses, gradient
+              rel-L2, CUDA-event ms, peak MiB, launches a step). For
+              ``ZOO_CLI`` the training CLI for one epoch and the evaluation
+              tool on its checkpoint. Path ``zoo_<model>``: all of it.
+ 10. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
               card each over NCCL where there are two cards or more, else
               two ranks sharing card 0 over gloo (named on the line), each
               a process of parallel.launch: three train steps at global
@@ -166,7 +183,11 @@ K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
 # tokens), and a ragged tile.
 K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
             ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
-            ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)))
+            ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)),
+            ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)))
+# The cases timed with the profiler too: DA-V2-S's training shape (the row's
+# times), and DPT_Large's and DPT_Hybrid's at 448x576 (28x36 + 1 tokens).
+K4_PROFILED = ("da2s_train", "dptl_train", "dpth_train")
 # K4's backward cases: DA-V2-S and DA-V2-B training, DA-V2-L, the flagship's
 # branch, ragged, a grid smaller than one wave, and N one below, at and one
 # above the 64 and 128 rows a block can take.
@@ -174,7 +195,8 @@ K4_BWD_CASES = (("da2s_train", (4, 1345, 6, 64)), ("da2b_train", (4, 1345, 12, 6
                 ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
                 ("ragged", (2, 130, 6, 64)), ("one_block", (1, 65, 1, 64)),
                 ("n63", (1, 63, 2, 64)), ("n64", (1, 64, 2, 64)), ("n127", (1, 127, 2, 64)),
-                ("n128", (1, 128, 2, 64)), ("n129", (1, 129, 2, 64)))
+                ("n128", (1, 128, 2, 64)), ("n129", (1, 129, 2, 64)),
+                ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)))
 # rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
 # (K4's backward, and K1's)
 TOL_K4_GRAD = 1e-5
@@ -833,12 +855,13 @@ def _check_k4(K, g) -> dict:
             cases[label] = dict(max_abs_err=err, **timings(
                 lambda: K.flash_attention(q, k, v), lambda: K.flash_attention_plain(q, k, v),
                 lambda: sdpa(tq, tk, tv), work,
-                KERNEL_NAMES["flash_attention"] if label == "da2s_train" else None))
+                KERNEL_NAMES["flash_attention"] if label in K4_PROFILED else None))
             emit({"phase": "kernels", "kernel": name, "case": label, "shape": [b, n, h, d],
                   **cases[label]})
             check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
         out[name] = dict(cases["da2s_train"],
-                         max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+                         max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+                         dpt=_dpt_cases(cases))
     out.update(_check_k4_backward_all(K, g))
     return out
 
@@ -854,8 +877,17 @@ def _check_k4_backward_all(K, g) -> dict:
                  for label, shape in K4_BWD_CASES}
         out[name] = dict(cases["da2s_train"],
                          max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-                         max_rel_l2=max(c["max_rel_l2"] for c in cases.values()))
+                         max_rel_l2=max(c["max_rel_l2"] for c in cases.values()),
+                         dpt=_dpt_cases(cases))
     return out
+
+
+def _dpt_cases(cases: dict) -> dict:
+    """The DPT shapes' numbers of a K4 row (its main numbers are DA-V2-S's)."""
+    keys = ("max_abs_err", "max_rel_l2", "ms", "device_ms", "profiler_ms", "plain_device_ms",
+            "bound_ms", "bound_by", "bound_share", "library_ms")
+    return {label: {k: cases[label][k] for k in keys if k in cases[label]}
+            for label in ("dptl_train", "dpth_train")}
 
 
 def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) -> dict:
@@ -899,7 +931,8 @@ def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) ->
                **timings(lambda: K._flash_attention_backward(q, k, v, o, lse, cot), recompute,
                          lambda: torch.autograd.grad(lib_out, leaves, lib_cot, retain_graph=True),
                          work,
-                         KERNEL_NAMES["flash_attention_backward"] if label == "da2s_train" else None))
+                         KERNEL_NAMES["flash_attention_backward"] if label in K4_PROFILED
+                         else None))
     if label == "da2s_train":
         # each pass's own device time, and what ptxas and the launcher give
         # the kernels: registers, spills, static and dynamic shared memory,
@@ -1181,6 +1214,23 @@ def model_cfg(name: str, *sets: str):
     return cfg
 
 
+def final_depth_conv(model):
+    """The conv that makes each model's depth channel: DA-V2's release tail,
+    the flagship's depth head, U-Net's ``final``, else the MiDaS and DPT
+    heads' ``scratch.output_conv[4]``."""
+    from mde_tpu_torch.models.depth_anything import DepthAnythingV2
+    from mde_tpu_torch.models.midas_semantics import MidasNetSemantics
+    from mde_tpu_torch.models.simple_unet import SimpleUNet
+
+    if isinstance(model, DepthAnythingV2):
+        return model.depth_head.scratch.output_conv2[2]
+    if isinstance(model, MidasNetSemantics):
+        return model.depth_head[1]
+    if isinstance(model, SimpleUNet):
+        return model.final
+    return model.scratch.output_conv[4]
+
+
 def make_model(name: str, cfg, bias: float):
     """The model from SEED on the CPU, with every LayerScale gamma in [0.2, 0.8]
     and the final depth conv's bias raised by ``bias`` (a random depth tail
@@ -1194,9 +1244,7 @@ def make_model(name: str, cfg, bias: float):
         for m in model.modules():
             if isinstance(m, LayerScale):
                 m.gamma.copy_(torch.rand(m.gamma.shape, generator=g) * 0.6 + 0.2)
-        final = (model.depth_head.scratch.output_conv2[2] if name == "da2"
-                 else model.depth_head[1])
-        final.bias.add_(bias)
+        final_depth_conv(model).bias.add_(bias)
     return model
 
 
@@ -2070,6 +2118,253 @@ def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
         service.close()
 
 
+# The zoo phase: the rest of the factory's models, each selected by its
+# ``--set``s alone, at full width and the default 448x576 input.
+ZOO = (
+    ("midas_small", ("model.dinov2_type=null",)),
+    ("midas_small_lb_dgr", ("model.dinov2_type=null", "model.network.use_lb=true",
+                            "model.network.use_dgr=true")),
+    ("flagship_lb", ("model.network.use_lb=true",)),
+    ("unet", ("model.model_type=U_Net",)),
+    ("midas", ("model.model_type=MiDaS",)),
+    ("dpt_large", ("model.model_type=DPT_Large",)),
+    ("dpt_hybrid", ("model.model_type=DPT_Hybrid",)),
+)
+ZOO_CLI = "midas_small_lb_dgr"  # the one model the training CLI and evaluation tool run
+# Kernel predict step against the plain-version one, float32 on the same
+# weights and frames: max-abs over the plain map's largest value. The
+# flagship's and DA-V2-S's served maps sat 2e-7 of it from plain on an H100.
+TOL_ZOO_PREDICT = 1e-5
+ZOO_CONV = ("preprocess_u8", "preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward")
+PATH_KERNELS.update({
+    "zoo_midas_small": ZOO_CONV, "zoo_midas_small_lb_dgr": ZOO_CONV, "zoo_unet": ZOO_CONV,
+    "zoo_midas": ZOO_CONV, "zoo_flagship_lb": PATH_KERNELS["flagship_train"],
+    "zoo_dpt_large": PATH_KERNELS["da2_train"], "zoo_dpt_hybrid": PATH_KERNELS["da2_train"],
+})
+
+
+def _zoo_serve(name: str, sets: tuple) -> dict:
+    """build_service from the model's ``--set``s behind the HTTP server:
+    two concurrent frames, the replies against the kernels' predict step on
+    the same frames, that step against ``plain=True``, host ms by bucket."""
+    from http.server import ThreadingHTTPServer
+
+    from mde_tpu_torch.tools.serve import build_service, make_handler
+    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+    from mde_tpu_torch.train.trainer import make_predict_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        cfg = model_cfg(name, *sets, f"paths.results_dir={tmp}")
+        save_checkpoint(checkpoint_path(tmp, cfg.experiment.model_name),
+                        make_model(name, cfg, bias=0.5))
+        t0 = time.perf_counter()
+        service = build_service(cfg, "cuda", max_batch=2, window_ms=20.0, warmup=True)
+        start_s = time.perf_counter() - t0
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            h, w = service.native
+            images = np.random.default_rng(SEED).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+            reset_counts()
+            replies, serve_s = _post_concurrently(f"http://127.0.0.1:{server.server_address[1]}",
+                                                  images)
+            launches = read_counts()
+            check(all(st == 200 for st, _, _ in replies), f"zoo {name}: HTTP {replies[0][:2]}")
+            served = np.stack([np.load(io.BytesIO(body)) for _, body, _ in replies])
+            check(served.shape == (2, 426, 560) and bool(np.isfinite(served).all()),
+                  f"zoo {name}: replies {served.shape}, or non-finite")
+            x = torch.from_numpy(images).cuda()
+            kernels = service._step(x).cpu().numpy()
+            plain = make_predict_step(service.model, cfg, plain=True)(x).cpu().numpy()
+            scale = float(np.abs(plain).max())
+            out = {"start_s": start_s, "serve_s": serve_s, "launches": launches,
+                   "batch_sizes": [int(hd["X-Batch-Size"]) for _, _, hd in replies],
+                   "served_vs_predict_max_abs": float(np.abs(served - kernels).max()),
+                   "predict_vs_plain_max_abs": float(np.abs(kernels - plain).max()),
+                   "depth_max": scale, "depth_spread": float(plain.max() - plain.min()),
+                   "predict_ms_by_bucket": {
+                       str(b): _host_ms(service._step, np.zeros((b, h, w, 3), np.uint8))
+                       for b in service.batcher.buckets}}
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    emit({"phase": "zoo", "model": name, "part": "serve", **out})
+    check(out["served_vs_predict_max_abs"] <= TOL_ZOO_PREDICT * scale,
+          f"zoo {name}: served vs predict step {out['served_vs_predict_max_abs']} (map max {scale})")
+    check(out["predict_vs_plain_max_abs"] <= TOL_ZOO_PREDICT * scale,
+          f"zoo {name}: kernels vs plain predict {out['predict_vs_plain_max_abs']} "
+          f"(map max {scale})")
+    check(out["depth_spread"] > 0, f"zoo {name}: a constant map")
+    return launches
+
+
+def _zoo_train(name: str, sets: tuple) -> dict:
+    """Two train steps in float32 and two in bf16 at batch 4 through the
+    kernels, each beside the same step through the plain versions on the same
+    weights and draws: losses, the gradient's rel-L2 against the plain step,
+    CUDA-event ms, peak MiB and the kernels' launches."""
+    from mde_tpu_torch.data import synthetic
+    from mde_tpu_torch.models.midas_semantics import CrossAttention
+    from mde_tpu_torch.nn.vit import Attention
+    from mde_tpu_torch.train.trainer import make_optimizer, make_train_step, step_generator
+
+    cfg16 = model_cfg(name, *sets)  # bf16 compute, the default
+    cfg32 = model_cfg(name, *sets, "framework.compute_dtype=float32")
+    # the depth head comfortably positive, as phase_train's flagship: at the
+    # ReLU cliff the loss gradient is ~1/(pred + 1e-6), and with a bias of
+    # 0.5 K3's rounding moved MidasNet's float32 gradient 0.36 rel-L2 from
+    # the plain step's on an H100
+    model = make_model(name, cfg16, bias=2.0).cuda()
+    init = copy.deepcopy(model.state_dict())
+    rng = np.random.default_rng(SEED)
+    samples = [synthetic.make_sample(rng, *TRAIN_SHAPE[1:]) for _ in range(TRAIN_SHAPE[0])]
+    rgb_u8 = torch.from_numpy(np.stack([s_[0] for s_ in samples])).cuda()
+    depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
+    # K4's backward once per trainable attention block a step (the flagship's
+    # DINOv2 is frozen), K1's once per cross-attention, K3's train form once
+    n_attn = 0 if name == "flagship_lb" else sum(isinstance(m, Attention) for m in model.modules())
+    n_cross = sum(isinstance(m, CrossAttention) for m in model.modules())
+    out, total = {}, collections.Counter()
+    for dt, cfg in (("fp32", cfg32), ("bf16", cfg16)):
+        model.load_state_dict(init)
+        plain = copy.deepcopy(model)
+        steps = {"kernels": make_train_step(model, cfg, make_optimizer(model, cfg)),
+                 "plain": make_train_step(plain, cfg, make_optimizer(plain, cfg), plain=True)}
+        rows = []
+        for i in range(2):
+            row = {}
+            for mode, step in steps.items():
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+                loss = step(rgb_u8, depth_raw, step_generator(SEED, 0, i))["loss"]
+                t1.record()
+                torch.cuda.synchronize()
+                launches = read_counts()
+                row[mode] = {"loss": loss.item(), "ms": t0.elapsed_time(t1),
+                             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+                if mode == "kernels":
+                    row["launches"] = {k: v for k, v in launches.items() if v}
+                    total.update(launches)
+                else:
+                    check(not any(launches.values()), f"zoo {name}: the plain step launched "
+                          f"{launches}")
+            row["loss_rel"] = abs(row["kernels"]["loss"] - row["plain"]["loss"]) / abs(
+                row["plain"]["loss"])
+            row["grad_rel_l2"] = _grad_gaps(model, plain)
+            rows.append(row)
+            bf16 = dt == "bf16"
+            want = {"preprocess_u8_train": 1,
+                    "flash_attention_backward" + ("_bf16" if bf16 else ""): n_attn,
+                    "window_attention_backward" + ("_bf16" if bf16 else ""): n_cross}
+            got = {k: row["launches"].get(k, 0) for k in want}
+            check(got == want, f"zoo {name} {dt} step {i}: launches {got}, want {want}")
+        out[dt] = rows
+        del plain, steps
+    emit({"phase": "zoo", "model": name, "part": "train", **out})
+    for i, row in enumerate(out["fp32"]):
+        check(all(np.isfinite([row[m]["loss"] for m in ("kernels", "plain")])),
+              f"zoo {name}: non-finite fp32 loss at step {i}")
+    first = out["fp32"][0]
+    check(first["loss_rel"] <= TOL_TRAIN_LOSS, f"zoo {name}: fp32 loss kernels vs plain "
+          f"{first['loss_rel']}")
+    gaps = first["grad_rel_l2"]
+    check(gaps["global"] < TOL_GRAD_GLOBAL, f"zoo {name}: global gradient rel-L2 {gaps['global']}")
+    bad = {k: v for k, v in gaps.items() if k != "global" and v >= TOL_GRAD_SUBTREE}
+    check(not bad, f"zoo {name}: subtree gradient rel-L2 above {TOL_GRAD_SUBTREE}: {bad}")
+    # bf16: the step-0 loss against float32's; its gradient is reported, not
+    # bounded (the flagship's bf16 gradient is 0.74 rel-L2 from its float32
+    # one by rounding alone on an H100, the parallel phase's
+    # grad_rel_l2_vs_float32)
+    loss32 = first["kernels"]["loss"]
+    for mode in ("kernels", "plain"):
+        loss16 = out["bf16"][0][mode]["loss"]
+        check(np.isfinite(loss16) and abs(loss16 - loss32) <= TOL_BF16_LOSS * abs(loss32),
+              f"zoo {name}: bf16 {mode} step-0 loss {loss16} vs float32 {loss32}")
+    check(all(np.isfinite(r[m]["loss"]) for r in out["bf16"] for m in ("kernels", "plain")),
+          f"zoo {name}: non-finite bf16 loss")
+    del model
+    return dict(total)
+
+
+def _zoo_cli(name: str, sets: tuple) -> dict:
+    """The training CLI for one epoch on generated data, then the evaluation
+    tool on the checkpoint it wrote (the reference grammar's ``.pth``)."""
+    import contextlib
+
+    from mde_tpu_torch.data import synthetic
+    from mde_tpu_torch.tools import evaluation
+    from mde_tpu_torch.tools import main as train_cli
+    from mde_tpu_torch.tools.common import bootstrap_model, live_missing_keys
+    from mde_tpu_torch.train.checkpoint import (TRAINING_KEYS, checkpoint_path,
+                                                load_training_checkpoint)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        synthetic.generate(data, n_train=16, n_test=4, size=TRAIN_SHAPE[1:], seed=SEED)
+        results = os.path.join(tmp, "results")
+        run_sets = sets + ("training.n_epoch=1", "framework.mesh.data=1",
+                           f"paths.results_dir={results}", f"paths.data_dir={data}",
+                           f"paths.predictions_dir={os.path.join(tmp, 'predictions')}",
+                           "experiment.wandb_disable=true")
+        argv = ["--device", "cuda"] + [a for x in run_sets for a in ("--set", x)]
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        cfg = model_cfg(name, *run_sets)
+        ckpt = checkpoint_path(results, cfg.experiment.model_name)
+        payload = load_training_checkpoint(ckpt)
+        check(set(TRAINING_KEYS) <= set(payload), f"zoo {name}: checkpoint keys {sorted(payload)}")
+        model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
+        check(set(payload["model_state_dict"]) == set(model.state_dict())
+              and not report["shape_mismatch"] and not live_missing_keys(model, report),
+              f"zoo {name}: the checkpoint is not the model's grammar: {report}")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            metrics = evaluation.main(argv)
+        eval_s = time.perf_counter() - t0
+        launches = read_counts()
+        count = int(dict(line.rsplit(": ", 1) for line in printed.getvalue().splitlines()
+                         if ": " in line)["Number of trainable parameters in the model"])
+        out = {"seconds": cli_s, "history": history, "evaluation_s": eval_s,
+               "evaluation": {k: float(v) for k, v in metrics.items()},
+               "trainable_count": count, "launches": launches}
+        emit({"phase": "zoo", "model": name, "part": "cli", **out})
+        check(len(history["train_loss"]) == 1 and all(
+            np.isfinite(history["train_loss"] + history["val_loss"])), f"zoo {name}: {history}")
+        check(all(np.isfinite(list(out["evaluation"].values()))),
+              f"zoo {name}: evaluation {out['evaluation']}")
+        check(count == evaluation.count_trainable_params(model),
+              f"zoo {name}: the tool printed {count} trainable parameters")
+        del model
+    return launches
+
+
+def phase_zoo(name: str, sets: tuple) -> dict:
+    """One model of ``ZOO``: serve, train (and the CLI for ``ZOO_CLI``); the
+    path ``zoo_<name>`` holds their launches, and must launch its
+    ``PATH_KERNELS`` and no other."""
+    path = f"zoo_{name}"
+    t0 = time.perf_counter()
+    total = collections.Counter(_zoo_serve(name, sets))
+    torch.cuda.empty_cache()
+    total.update(_zoo_train(name, sets))
+    if name == ZOO_CLI:
+        total.update(_zoo_cli(name, sets))
+    torch.cuda.empty_cache()
+    total = {k: total.get(k, 0) for k in read_counts()}
+    emit({"phase": "zoo", "model": name, "sets": list(sets), "launches": total,
+          "seconds": time.perf_counter() - t0})
+    check_path_launches(path, total, f"during {path}")
+    return {path: total}
+
+
 def phase_op_dispatch() -> dict:
     """Host microseconds of one call through each ``torch.library`` op
     against one call of its CUDA implementation, at small shapes where the
@@ -2573,8 +2868,15 @@ def main() -> int:
         # the data-parallel phase alone: the quick run for its own changes
         emit({"parallel_launches": phase_parallel()})
         return 0
+    if sys.argv[1:] == ["--zoo-only"]:
+        # the zoo phase alone: the quick run for the zoo's models
+        by_path = {}
+        for name, sets in ZOO:
+            by_path.update(phase_zoo(name, sets))
+        emit({"zoo_launches": by_path})
+        return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
-          "--k4-backward-only, --k2-only and --parallel-only")
+          "--k4-backward-only, --k2-only, --parallel-only and --zoo-only")
     kernels = phase_kernels()
     phase_op_dispatch()
     by_path = {}
@@ -2582,6 +2884,8 @@ def main() -> int:
         by_path[f"{name}_serve"] = phase_serve(name)
         by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
     by_path["flagship_augment"] = phase_augment()
+    for name, sets in ZOO:
+        by_path.update(phase_zoo(name, sets))
     by_path["parallel"] = phase_parallel()
     rows = []
     for name, source, replaces in (

@@ -8,6 +8,12 @@ checkpoint's names (src/network/midas_semantics.py:153-205), which
 mde_tpu/train/torch_import.py::map_midas_semantics_key reads, so
 ``state_dict()`` is a reference ``.pth``.
 
+``use_lb`` puts the LocalBins metric head over [depth, layer_4_rn, path_4,
+path_3, path_2, path_1] (midas_semantics.py:261-265). ``use_dgr`` is taken
+and not applied, as in the reference and mde_tpu
+(mde_tpu/models/midas_semantics.py:233-236): the reference's forward never
+calls the DGR blocks its base class builds, so their keys are dead.
+
 Differences from the JAX module: the frozen branch runs under
 ``torch.no_grad()`` (the JAX package uses stop_gradient), and ResidualBlock
 runs its entry as two convs (the JAX ``merge_entry`` merges them for the TPU's
@@ -25,14 +31,18 @@ from ..nn.blocks import (BatchNorm, Conv, ConvTranspose, FeatureFusionBlockCusto
 from ..nn.vit import VIT_CONFIGS, ViT
 from ..ops.resize import resize_bilinear
 from ..ops.window_attention import windowed_cross_attention
-from .midas_small import MidasNetSmall
+from .midas_small import CONSTANT_KEY_PREFIXES, MidasNetSmall, dgr_blocks
 
 # Keys of the reference grammar that no forward reads: refinenet4 is only ever
-# called with one input, and mask_token serves masked-image training only.
+# called with one input, mask_token serves masked-image training only, and
+# the DGR blocks of a use_dgr checkpoint are never called; and LogBinomial's
+# constant buffers (mde_tpu neither holds nor loads them).
 DEAD_KEY_PREFIXES = (
     "dinov2.mask_token",
     "scratch.refinenet4.resConfUnit1.",
     "dinov2_head.scratch.refinenet4.resConfUnit1.",
+    *(f"dgr{i}." for i in range(1, 5)),
+    *CONSTANT_KEY_PREFIXES,
 )
 
 
@@ -139,14 +149,18 @@ class Dinov2Head(nn.Module):
 
 
 class MidasNetSemantics(MidasNetSmall):
-    """forward(x (B, 3, H, W)) -> (B, H, W) non-negative relative depth."""
+    """forward(x (B, 3, H, W)) -> (B, H, W) non-negative relative depth, or
+    metric depth with ``use_lb``."""
 
     DEAD_KEY_PREFIXES = DEAD_KEY_PREFIXES
 
     def __init__(self, features: int = 64, backbone: str = "efficientnet_lite3",
-                 dinov2_type: str = "dinov2_vits14", dinov2_image_size=(224, 280)):
-        super().__init__(features, backbone)
+                 dinov2_type: str = "dinov2_vits14", dinov2_image_size=(224, 280),
+                 use_lb: bool = False, use_dgr: bool = False):
+        super().__init__(features, backbone, head_32=True, use_lb=use_lb)
         f = features
+        if use_dgr:
+            dgr_blocks(self, f)  # dead: built, as the reference's base class does, never called
         self.dinov2_image_size = tuple(int(s) for s in dinov2_image_size)
         self.dinov2 = ViT(dinov2_type)
         self.dinov2.requires_grad_(False)
@@ -161,7 +175,7 @@ class MidasNetSemantics(MidasNetSmall):
     def forward(self, x, plain: bool = False):
         """``plain=True`` runs every kernel op's plain version (K4 in the
         DINOv2 branch, K1 in the cross-attention) on any device."""
-        midas_features = super().forward(x)
+        midas_features, pyramid = super().forward(x)
         dh, dw = self.dinov2_image_size
         patch = self.dinov2.patch
         with torch.no_grad():  # the DINOv2 branch is frozen
@@ -173,4 +187,6 @@ class MidasNetSemantics(MidasNetSmall):
         attended = self.cross_attention(midas_features, dinov2_features, plain)
         fused = self.fusion_blocks(torch.cat([attended, midas_features], dim=1))
         depth = self.depth_head(self.fusion_head(fused))
+        if self.use_lb:
+            return self.local_bins([depth, *pyramid], depth[:, 0])
         return depth[:, 0]

@@ -53,6 +53,38 @@ def interpolate(x, scale_factor=None, size=None, align_corners=False):
     return resize_bilinear(x, size, align_corners=align_corners)
 
 
+class ResidualConvUnit(nn.Module):
+    """relu-conv3x3-relu-conv3x3 plus relu(x) (blocks.py:243-279): the
+    reference's in-place ReLU rewrites its input, so the skip adds the
+    ReLU'd input, as mde_tpu/nn/blocks.py:210-227 does."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = Conv(features, features, 3, 1, 1)
+        self.conv2 = Conv(features, features, 3, 1, 1)
+
+    def forward(self, x):
+        h = F.relu(x)
+        return self.conv2(F.relu(self.conv1(h))) + h
+
+
+class FeatureFusionBlock(nn.Module):
+    """MidasNet's fusion block (blocks.py:282-314): the skip's RCU added to
+    the input, an RCU, then a 2x align-corners upsample; no out conv.
+    ``resConfUnit1`` exists on refinenet4 too, which is called with one input."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.resConfUnit1 = ResidualConvUnit(features)
+        self.resConfUnit2 = ResidualConvUnit(features)
+
+    def forward(self, *xs):
+        output = xs[0]
+        if len(xs) == 2:
+            output = output + self.resConfUnit1(xs[1])
+        return interpolate(self.resConfUnit2(output), scale_factor=2, align_corners=True)
+
+
 class ResidualConvUnitCustom(nn.Module):
     """relu-conv3x3-relu-conv3x3 + x (blocks.py:319-376). The optional BN of
     the reference serves the DPT heads and comes with the zoo."""
@@ -116,10 +148,12 @@ def _uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Give every parameter and buffer of ``model`` (on the CPU) a value.
 
-    Convs, transposed convs and Linears take torch's defaults (kaiming-uniform
-    with a=sqrt(5), bias uniform in +-1/sqrt(fan_in)); norms are ones/zeros and
-    BN running statistics 0/1. A module with leaves of its own (the ViT's
-    tokens and pos-embed, LayerScale) sets them in its ``init_leaves_``. Every
+    Convs (grouped ones too), transposed convs and Linears take torch's
+    defaults (kaiming-uniform with a=sqrt(5), bias uniform in +-1/sqrt(fan_in));
+    norms (batch, layer and group) are ones/zeros and BN running statistics
+    0/1. A module with leaves of its own (the ViTs' tokens and pos-embed,
+    LayerScale, DGR's Laplacian taps, LogBinomial's buffers) sets them in its
+    ``init_leaves_``. Every
     draw comes from ``generator``, so a seed fixes the weights.
     """
     for m in model.modules():
@@ -128,7 +162,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _uniform_(m.weight, math.sqrt(1.0 / fan_in) if fan_in else 0.0, generator)
             if m.bias is not None:
                 _uniform_(m.bias, 1.0 / math.sqrt(fan_in) if fan_in else 0.0, generator)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
             if isinstance(m, nn.BatchNorm2d):

@@ -42,15 +42,22 @@ def _tf_same_pads(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def tf_same_pad(x, k: int, s: int, value: float = 0.0):
+    """``x`` padded for a TF SAME window of ``k`` at stride ``s``."""
+    top, bottom = _tf_same_pads(x.shape[-2], k, s)
+    left, right = _tf_same_pads(x.shape[-1], k, s)
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
 class Conv2dSame(nn.Conv2d):
     """Conv2d with TF SAME padding (gen-efficientnet's Conv2dSame)."""
 
     def forward(self, x):
-        k, s = self.kernel_size[0], self.stride[0]
-        top, bottom = _tf_same_pads(x.shape[-2], k, s)
-        left, right = _tf_same_pads(x.shape[-1], k, s)
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
+        return self._same(x, self.weight)
+
+    def _same(self, x, weight):
+        x = tf_same_pad(x, self.kernel_size[0], self.stride[0])
+        return F.conv2d(x, weight, self.bias, self.stride, 0, self.dilation, self.groups)
 
 
 def TFBatchNorm(c: int) -> nn.BatchNorm2d:

@@ -27,8 +27,6 @@ from mde_tpu.nn.blocks import FeatureFusionBlockCustom as JFusion
 from mde_tpu.nn.efficientnet import EfficientNetLite as JEffNet
 from mde_tpu.nn.vit import ViT as JViT
 from mde_tpu.ops.resize import resize_bicubic as j_bicubic, resize_bilinear as j_bilinear
-from mde_tpu_torch.core import config
-from mde_tpu_torch.models.factory import build_model
 from mde_tpu_torch.models.midas_semantics import (
     DEAD_KEY_PREFIXES,
     CrossAttention,
@@ -36,8 +34,10 @@ from mde_tpu_torch.models.midas_semantics import (
     ResidualBlock,
 )
 from mde_tpu_torch.nn.blocks import FeatureFusionBlockCustom
+from mde_tpu_torch.models.dpt import DPTDepthModel
 from mde_tpu_torch.nn.efficientnet import EfficientNetLite
 from mde_tpu_torch.nn.registry import encoder_channels, make_encoder
+from mde_tpu_torch.nn.resnext import ResNetBackbone
 from mde_tpu_torch.nn.vit import ViT
 from mde_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 from mde_tpu_torch.train.checkpoint import load_state_dict
@@ -200,20 +200,26 @@ def test_dinov2_head():
     _close(got, np.asarray(want).transpose(0, 3, 1, 2))
 
 
-@pytest.mark.parametrize("model", [
-    {"model_type": "MiDaS_small", "dinov2_type": None},
-    {"model_type": "DPT_Hybrid"},
-    {"model_type": "MiDaS_small", "dinov2_type": "dinov2_vits14", "network": {"use_lb": True}},
-    {"model_type": "MiDaS_small", "dinov2_type": "dinov2_vitg14"},
-])
+@pytest.mark.parametrize("model", ["beitl16_512", "swin2l24_384", "levit_384",
+                                   "next_vit_large_6m"])
 def test_unported_models_raise_with_their_roadmap_item(model):
-    cfg = config.defaults()
-    cfg.model = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.model, "cpu", torch.Generator())
+    """Every factory branch is ported; the DPT trunks that only mde_tpu's
+    model_loader reaches are ROADMAP item 6.6 and raise naming it."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*6\.6"):
+        DPTDepthModel(model)
 
 
 def test_registry_has_only_the_flagship_encoder():
+    """The registry's convolutional rows build (the flagship's lite3 and
+    MidasNet's ResNeXt101); the token backbones go through models/dpt.py
+    and raise here, as in mde_tpu."""
     assert encoder_channels("efficientnet_lite3") == [32, 48, 136, 384]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_encoder("resnext101_wsl")
+    assert encoder_channels("resnext101_wsl") == [256, 512, 1024, 2048]
+    with torch.device("meta"):
+        assert isinstance(make_encoder("resnext101_wsl"), ResNetBackbone)
+        assert isinstance(make_encoder("efficientnet_lite0"), EfficientNetLite)
+    for name in ("vitl16_384", "vitb_rn50_384", "beitl16_512"):
+        with pytest.raises(NotImplementedError, match="models.dpt"):
+            make_encoder(name)
+    with pytest.raises(ValueError, match="not in registry"):
+        encoder_channels("resnet50")

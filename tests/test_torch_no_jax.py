@@ -5,7 +5,9 @@ import hook that refuses ``jax``, ``jaxlib``, ``flax``, ``optax``,
 ``mde_tpu``, ``PIL`` and ``triton`` imports every module of
 ``mde_tpu_torch`` (Depth-Anything-V2, K4's, the evaluation, prediction, CSV
 and visualisation tools, the profiling helpers, the export module, its CLI,
-the conv+BN folding and the data-parallel modules among them, and the
+the conv+BN folding, the data-parallel modules and the rest of the model
+zoo (LocalBins, U-Net, MidasNet over ResNeXt, DPT over the timm ViTs and
+ResNetV2) among them, and the
 kernels' ``torch.library`` ops registered; matplotlib,
 which imports PIL, only when a figure is drawn), builds DA-V2-S
 through the factory and runs it on a small image, then writes a synthetic
@@ -45,7 +47,13 @@ SCRIPT = textwrap.dedent('''
                                     "mde_tpu_torch.parallel.distributed",
                                     "mde_tpu_torch.parallel.mesh",
                                     "mde_tpu_torch.parallel.sync_batchnorm",
-                                    "mde_tpu_torch.parallel.launch"))
+                                    "mde_tpu_torch.parallel.launch",
+                                    "mde_tpu_torch.models.localbins",
+                                    "mde_tpu_torch.models.simple_unet",
+                                    "mde_tpu_torch.models.midas_net",
+                                    "mde_tpu_torch.models.dpt",
+                                    "mde_tpu_torch.nn.resnext",
+                                    "mde_tpu_torch.nn.resnetv2"))
     assert "matplotlib" not in sys.modules
     import torch
     assert all(hasattr(torch.ops.mde_tpu, op)
@@ -74,4 +82,4 @@ def test_port_imports_and_loads_data_without_jax_pil_or_triton():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True, text=True,
                           cwd=Path(__file__).resolve().parent.parent, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 50  # every module of the package was imported
+    assert int(proc.stdout.split()[-1]) >= 56  # every module of the package was imported
