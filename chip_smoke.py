@@ -35,10 +35,12 @@ Phases, each printing JSON lines:
               against the plain version's (-FLT_MAX exactly in a window with no
               valid key), the forward's time both ways, and the backward fed
               those statistics against autograd through the plain version; K3
-              at both models' sizes, serving bucket 1 (timed too) and four
+              at both models' sizes, serving bucket 1 (timed too), four
               shapes of its other paths (unaligned rows, a ragged width, rows
-              too wide to stage, an output larger than one cooperative grid),
-              the same bits twice; K3's train form (the colour jitter inside)
+              too wide to stage, an output larger than one cooperative grid)
+              and the loader's square input sizes 224, 256, 384 and 512
+              (downscales of 426x560 but 512's height), the same bits twice,
+              with the plan each shape chose; K3's train form (the colour jitter inside)
               at the same shapes and over all 24 orders, with the plan each
               shape chose (one cooperative launch, or two launches at the last
               two shapes), and the wrapper refusing
@@ -110,15 +112,26 @@ Phases, each printing JSON lines:
   9. zoo      the rest of the factory's models at full width and 448x576,
               each selected by its ``--set``s (``ZOO``): MiDaS-small,
               MiDaS-small + LocalBins + DGR, the flagship + LocalBins,
-              U-Net, MiDaS (ResNeXt101), DPT_Large and DPT_Hybrid. Serve:
-              build_service at buckets (1, 2) over HTTP, two frames, the
-              replies and the kernels' predict step against the
-              plain-version one, host ms by bucket. Train: two float32 and
-              two bf16 train steps at batch 4 against the same steps with
+              U-Net, MiDaS (ResNeXt101), DPT_Large and DPT_Hybrid; then the
+              MiDaS v3.1 loader's nine DPTs (``ZOO_LOADER``: BEiT-L/512,
+              BEiT-L/384, BEiT-B/384, Swin2-L/384, Swin2-B/384,
+              Swin2-T/256, Swin-L/384, Next-ViT-L/384, LeViT/224) from
+              ``load_model(name, device="cuda")`` at the loader's input
+              size, its host transform run on one 426x560 frame and the
+              model on its output. Serve: build_service (the loader's: a
+              DepthService over the model) at buckets (1, 2) over HTTP, two
+              frames, the replies and the kernels' predict step against
+              the plain-version one, the plain step against itself (the
+              noise witness), K3 and K4 swapped for their plain versions
+              one at a time, host and CUDA-event ms by bucket, K3's eval
+              form once a predict call. Train: two float32 and two bf16
+              train steps at batch 4 against the same steps with
               plain=True on the same weights and draws (losses, gradient
-              rel-L2, CUDA-event ms, peak MiB, launches a step). For
-              ``ZOO_CLI`` the training CLI for one epoch and the evaluation
-              tool on its checkpoint. Path ``zoo_<model>``: all of it.
+              rel-L2, CUDA-event ms, peak MiB, launches a step: K3's train
+              form and K2's forward and backward once), and in float32 the
+              plain step against itself. For ``ZOO_CLI`` the training CLI
+              for one epoch and the evaluation tool on its checkpoint.
+              Path ``zoo_<model>``: all of it.
  10. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
               card each over NCCL where there are two cards or more, else
               two ranks sharing card 0 over gloo (named on the line), each
@@ -139,9 +152,10 @@ Phases, each printing JSON lines:
               checkpoint, a prediction an image); then the training CLI at
               W, which starts its ranks.
               Path ``parallel``: the ranks' train steps, summed over ranks.
-Then a line with every kernel's numbers and its launches by path (a train
-path's are those of its checks (a), (b) and (c); a tools path's those of its
-three tools; an export path's one exported call a bucket), and last
+Then a line with the whole script's seconds, a line with every kernel's
+numbers and its launches by path (a train path's are those of its checks
+(a), (b) and (c); a tools path's those of its three tools; an export path's
+one exported call a bucket), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -167,6 +181,7 @@ import numpy as np
 import torch
 
 SEED = 0
+T0 = time.perf_counter()  # the whole script's seconds count from here
 K1_SOURCE = "mde_tpu_torch/csrc/window_attention.cu"
 K3_SOURCE = "mde_tpu_torch/csrc/preprocess.cu"
 K2_SOURCE = "mde_tpu_torch/csrc/si_loss.cu"
@@ -668,8 +683,10 @@ def _check_k1_backward(K, g, validity) -> dict:
 
 
 def _check_k3(K, g) -> dict:
-    """K3's eval form at ``_k3_cases`` against its plain version, then its
-    train form (``_check_k3_train``): the rows of both."""
+    """K3's eval form at ``_k3_cases`` against its plain version, the same
+    bits twice, with the launch plan each shape chose (rows and staged bytes
+    a block), timed at the flagship's size, bucket 1 and the loader's four,
+    then its train form (``_check_k3_train``): the rows of both."""
     results = {}
     # K3 to the flagship's and to DA-V2's input size, at serving bucket 1,
     # and at shapes that take its other paths; times at the flagship's (the
@@ -682,8 +699,9 @@ def _check_k3(K, g) -> dict:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         same_bits = torch.equal(got, again)
-        row = dict(max_abs_err=err, same_bits=same_bits)
-        if label in ("flagship", "bucket1"):
+        row = dict(max_abs_err=err, same_bits=same_bits,
+                   plan=K.preprocess_u8_plan(x.shape[0], *x.shape[1:3], *size))
+        if label in ("flagship", "bucket1") or label.startswith("loader"):
             # u8 NHWC read once, float32 NCHW written once; ~12 FLOP an
             # output value (two bilinear blends and the normalise); no one
             # PyTorch call resizes and normalises.
@@ -699,10 +717,10 @@ def _check_k3(K, g) -> dict:
         check(same_bits, f"preprocess_u8 {label}: two calls gave other bits")
         if label == "flagship":
             results["preprocess_u8"] = row
-        elif label == "bucket1":
-            results["preprocess_u8"]["bucket1"] = {
-                key: row[key] for key in ("profiler_ms", "device_ms", "ms", "bound_ms",
-                                          "bound_share")}
+        elif label == "bucket1" or label.startswith("loader"):
+            results["preprocess_u8"][label] = {
+                key: row[key] for key in ("profiler_ms", "device_ms", "ms", "plain_ms", "bound_ms",
+                                          "bound_share", "plan")}
         results["preprocess_u8"]["max_abs_err"] = max(err, results["preprocess_u8"]["max_abs_err"])
     results["preprocess_u8_train"] = _check_k3_train(K, g, rgb)
     return results
@@ -716,14 +734,22 @@ def _k3_cases(g, rgb):
     value), 24,000-byte source rows (too wide to stage: the taps come from
     device memory; the train form's two-launch design) and a 2048x2048
     output (more than one cooperative grid holds: the train form's
-    two-launch design on staged rows)."""
+    two-launch design on staged rows), and the loader's four square input
+    sizes from the train batch, three of them downscales."""
     def u8(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, generator=g).cuda()
 
     return (("flagship", rgb, (448, 576)), ("da2", rgb, (448, 588)),
             ("bucket1", rgb[:1], (448, 576)), ("odd", u8(3, 37, 53, 3), (64, 96)),
             ("ragged", u8(3, 37, 53, 3), (61, 93)), ("wide", u8(1, 6, 8000, 3), (5, 7001)),
-            ("large", u8(1, 1024, 1024, 3), (2048, 2048)))
+            ("large", u8(1, 1024, 1024, 3), (2048, 2048)),
+            *((f"loader{side}", rgb, (side, side)) for side in LOADER_SIDES))
+
+
+# The loader's DPTs' input sides (ZOO_LOADER): from 426x560, downscales by
+# 1.9 x 2.5 (224), 1.7 x 2.2 (256) and 1.1 x 1.5 (384), and 512 (up by 1.2
+# in height, down by 1.1 in width).
+LOADER_SIDES = (224, 256, 384, 512)
 
 
 # The train form's design at each case, as its plan must choose it from the
@@ -755,8 +781,8 @@ def _check_k3_train(K, g, rgb) -> dict:
     go in as the train step makes them, on the CPU; the wrapper refuses draws
     on the card and an order that is not a permutation. Each case emits the
     plan the shape chose, and ``K3_TRAIN_DESIGN`` holds it to its design (one
-    cooperative launch where not listed). Times at the flagship's size,
-    batch 4."""
+    cooperative launch where not listed). Times at the flagship's size and
+    the loader's four, batch 4."""
     import itertools
 
     from mde_tpu_torch.ops.image import color_jitter_draws
@@ -786,13 +812,17 @@ def _check_k3_train(K, g, rgb) -> dict:
         check(plan["cooperative"] == coop and (plan["stage_bytes"] > 0) == staged,
               f"preprocess_u8_train {label}: plan {plan}, expected cooperative={coop}, "
               f"staged={staged}")
-        if label == "flagship":
+        if label == "flagship" or label.startswith("loader"):
             work = bound(_k3_train_flop(draws, size[0] * size[1]),
                          x.numel() + 4 * got.numel() + 4 * draws.numel(), "f32")
             case.update(timings(lambda: K.preprocess_u8_train(x, draws, size),
                                 lambda: K.preprocess_u8_train_plain(x, on_card, size), None,
                                 work, KERNEL_NAMES["preprocess_u8_train"]))
+        if label == "flagship":
             row = case
+        elif label.startswith("loader"):
+            row[label] = {key: case[key] for key in ("profiler_ms", "device_ms", "ms", "plain_ms",
+                                                     "bound_ms", "bound_share", "plan")}
         emit({"phase": "kernels", "kernel": "preprocess_u8_train", "case": label,
               "shape": list(x.shape), "out": list(got.shape), **case})
         check(tuple(got.shape) == (x.shape[0], 3, *size) and bool(torch.isfinite(got).all()),
@@ -2143,53 +2173,110 @@ PATH_KERNELS.update({
 })
 
 
-def _zoo_serve(name: str, sets: tuple) -> dict:
-    """build_service from the model's ``--set``s behind the HTTP server:
-    two concurrent frames, the replies against the kernels' predict step on
-    the same frames, that step against ``plain=True``, host ms by bucket."""
+def _swapped_predict(model, cfg, x, plain_k3: bool, plain_k4: bool) -> np.ndarray:
+    """The predict step with K3 and K4 each through its kernel or its plain
+    version, to find which of them moves a map from the plain step."""
+    from mde_tpu_torch.data.transforms import preprocess_eval
+    from mde_tpu_torch.ops.kernels import preprocess_u8_plain
+    from mde_tpu_torch.ops.resize import resize_bilinear
+
+    size = tuple(int(v) for v in cfg.framework.input_size)
+    model.eval()
+    with torch.inference_mode():
+        rgb = preprocess_u8_plain(x, size) if plain_k3 else preprocess_eval(x, input_size=size)
+        pred = model(rgb, plain=plain_k4)
+        return resize_bilinear(pred, tuple(cfg.framework.native_size),
+                               align_corners=True).cpu().numpy()
+
+
+def _step_times(step, batch: np.ndarray, reps: int = 7) -> dict:
+    """Medians of the host time of copy in, step and copy out (the serving
+    path's work, as ``_host_ms``) and of the step's CUDA-event time alone,
+    with each rep's host time."""
+    host, device = [], []
+    for _ in range(reps):
+        t = time.perf_counter()
+        x = torch.from_numpy(batch).cuda()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        y = step(x)
+        e1.record()
+        y.cpu()
+        host.append((time.perf_counter() - t) * 1e3)
+        device.append(e0.elapsed_time(e1))
+    return {"host_ms": statistics.median(host), "device_ms": statistics.median(device),
+            "host_ms_reps": host}
+
+
+def _top_kernels(fn, k: int = 5) -> dict:
+    """One call of ``fn`` under the profiler: its device ms in all, and the
+    ``k`` device kernels that take the most, with their ms and calls."""
+    events = [e for e in profiled(fn) if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.device_time_total > 0 and not e.key.startswith("ProfilerStep")]
+    events.sort(key=lambda e: -e.device_time_total)
+    return {"device_ms": sum(e.device_time_total for e in events) / 1e3,
+            "top": [[e.key[:90], e.device_time_total / 1e3, e.count] for e in events[:k]]}
+
+
+def _zoo_serve(name: str, cfg, start_service) -> dict:
+    """``start_service()``'s DepthService (buckets 1 and 2) behind the HTTP
+    server: two concurrent frames, the replies against the kernels' predict
+    step on the same frames, that step against ``plain=True``, the plain step
+    against itself (the noise witness), K3 and K4 swapped for their plain
+    versions one at a time, host and CUDA-event ms by bucket. K3's eval form
+    launches once a predict call."""
     from http.server import ThreadingHTTPServer
 
-    from mde_tpu_torch.tools.serve import build_service, make_handler
-    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+    from mde_tpu_torch.tools.serve import make_handler
     from mde_tpu_torch.train.trainer import make_predict_step
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
-        cfg = model_cfg(name, *sets, f"paths.results_dir={tmp}")
-        save_checkpoint(checkpoint_path(tmp, cfg.experiment.model_name),
-                        make_model(name, cfg, bias=0.5))
-        t0 = time.perf_counter()
-        service = build_service(cfg, "cuda", max_batch=2, window_ms=20.0, warmup=True)
-        start_s = time.perf_counter() - t0
-        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        try:
-            h, w = service.native
-            images = np.random.default_rng(SEED).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
-            reset_counts()
-            replies, serve_s = _post_concurrently(f"http://127.0.0.1:{server.server_address[1]}",
-                                                  images)
-            launches = read_counts()
-            check(all(st == 200 for st, _, _ in replies), f"zoo {name}: HTTP {replies[0][:2]}")
-            served = np.stack([np.load(io.BytesIO(body)) for _, body, _ in replies])
-            check(served.shape == (2, 426, 560) and bool(np.isfinite(served).all()),
-                  f"zoo {name}: replies {served.shape}, or non-finite")
-            x = torch.from_numpy(images).cuda()
-            kernels = service._step(x).cpu().numpy()
-            plain = make_predict_step(service.model, cfg, plain=True)(x).cpu().numpy()
-            scale = float(np.abs(plain).max())
-            out = {"start_s": start_s, "serve_s": serve_s, "launches": launches,
-                   "batch_sizes": [int(hd["X-Batch-Size"]) for _, _, hd in replies],
-                   "served_vs_predict_max_abs": float(np.abs(served - kernels).max()),
-                   "predict_vs_plain_max_abs": float(np.abs(kernels - plain).max()),
-                   "depth_max": scale, "depth_spread": float(plain.max() - plain.min()),
-                   "predict_ms_by_bucket": {
-                       str(b): _host_ms(service._step, np.zeros((b, h, w, 3), np.uint8))
-                       for b in service.batcher.buckets}}
-        finally:
-            server.shutdown()
-            server.server_close()
-            service.close()
+    t0 = time.perf_counter()
+    service = start_service()
+    start_s = time.perf_counter() - t0
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        h, w = service.native
+        images = np.random.default_rng(SEED).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+        reset_counts()
+        replies, serve_s = _post_concurrently(f"http://127.0.0.1:{server.server_address[1]}",
+                                              images)
+        launches = read_counts()
+        check(all(st == 200 for st, _, _ in replies), f"zoo {name}: HTTP {replies[0][:2]}")
+        served = np.stack([np.load(io.BytesIO(body)) for _, body, _ in replies])
+        check(served.shape == (2, 426, 560) and bool(np.isfinite(served).all()),
+              f"zoo {name}: replies {served.shape}, or non-finite")
+        sizes = [int(hd["X-Batch-Size"]) for _, _, hd in replies]
+        x = torch.from_numpy(images).cuda()
+        kernels = service._step(x).cpu().numpy()
+        plain_step = make_predict_step(service.model, cfg, plain=True)
+        plain = plain_step(x).cpu().numpy()
+        plain_again = plain_step(x).cpu().numpy()
+        scale = float(np.abs(plain).max())
+        out = {"start_s": start_s, "serve_s": serve_s, "launches": launches,
+               "batch_sizes": sizes,
+               "served_vs_predict_max_abs": float(np.abs(served - kernels).max()),
+               "predict_vs_plain_max_abs": float(np.abs(kernels - plain).max()),
+               "plain_vs_plain_max_abs": float(np.abs(plain_again - plain).max()),
+               "k3_plain_vs_plain_max_abs": float(np.abs(
+                   _swapped_predict(service.model, cfg, x, True, False) - plain).max()),
+               "k4_plain_vs_plain_max_abs": float(np.abs(
+                   _swapped_predict(service.model, cfg, x, False, True) - plain).max()),
+               "depth_max": scale, "depth_spread": float(plain.max() - plain.min()),
+               "reserved_mib": torch.cuda.memory_reserved() / 2**20,
+               "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)}
+        for b in service.batcher.buckets:
+            frames = np.zeros((b, h, w, 3), np.uint8)
+            times = _step_times(service._step, frames)
+            times["top_kernels"] = _top_kernels(
+                lambda: service._step(torch.from_numpy(frames).cuda()))
+            for key, value in times.items():
+                out.setdefault(f"predict_{key}_by_bucket", {})[str(b)] = value
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
     emit({"phase": "zoo", "model": name, "part": "serve", **out})
     check(out["served_vs_predict_max_abs"] <= TOL_ZOO_PREDICT * scale,
           f"zoo {name}: served vs predict step {out['served_vs_predict_max_abs']} (map max {scale})")
@@ -2197,41 +2284,49 @@ def _zoo_serve(name: str, sets: tuple) -> dict:
           f"zoo {name}: kernels vs plain predict {out['predict_vs_plain_max_abs']} "
           f"(map max {scale})")
     check(out["depth_spread"] > 0, f"zoo {name}: a constant map")
+    # one K3 launch a predict call: a batch of b frames answers b requests
+    calls = round(sum(1 / b for b in sizes))
+    check(launches["preprocess_u8"] == calls, f"zoo {name}: K3 launched "
+          f"{launches['preprocess_u8']} times for {calls} predict calls")
     return launches
 
 
-def _zoo_train(name: str, sets: tuple) -> dict:
+def _zoo_train(name: str, cfg16, cfg32, model) -> dict:
     """Two train steps in float32 and two in bf16 at batch 4 through the
     kernels, each beside the same step through the plain versions on the same
     weights and draws: losses, the gradient's rel-L2 against the plain step,
-    CUDA-event ms, peak MiB and the kernels' launches."""
+    CUDA-event ms, peak MiB and the kernels' launches. In float32 a second
+    plain step on its own copy of the weights and the same draws is the noise
+    witness: the plain step's gradient against itself (cuDNN's default
+    backward algorithms need not be deterministic). ``model`` is on the card,
+    its depth head comfortably positive."""
     from mde_tpu_torch.data import synthetic
     from mde_tpu_torch.models.midas_semantics import CrossAttention
     from mde_tpu_torch.nn.vit import Attention
     from mde_tpu_torch.train.trainer import make_optimizer, make_train_step, step_generator
 
-    cfg16 = model_cfg(name, *sets)  # bf16 compute, the default
-    cfg32 = model_cfg(name, *sets, "framework.compute_dtype=float32")
-    # the depth head comfortably positive, as phase_train's flagship: at the
-    # ReLU cliff the loss gradient is ~1/(pred + 1e-6), and with a bias of
-    # 0.5 K3's rounding moved MidasNet's float32 gradient 0.36 rel-L2 from
-    # the plain step's on an H100
-    model = make_model(name, cfg16, bias=2.0).cuda()
     init = copy.deepcopy(model.state_dict())
     rng = np.random.default_rng(SEED)
     samples = [synthetic.make_sample(rng, *TRAIN_SHAPE[1:]) for _ in range(TRAIN_SHAPE[0])]
     rgb_u8 = torch.from_numpy(np.stack([s_[0] for s_ in samples])).cuda()
     depth_raw = torch.from_numpy(np.stack([s_[1] for s_ in samples])).cuda()
     # K4's backward once per trainable attention block a step (the flagship's
-    # DINOv2 is frozen), K1's once per cross-attention, K3's train form once
+    # DINOv2 is frozen), K1's once per cross-attention, K3's train form and
+    # K2's forward and backward once
     n_attn = 0 if name == "flagship_lb" else sum(isinstance(m, Attention) for m in model.modules())
     n_cross = sum(isinstance(m, CrossAttention) for m in model.modules())
     out, total = {}, collections.Counter()
     for dt, cfg in (("fp32", cfg32), ("bf16", cfg16)):
         model.load_state_dict(init)
-        plain = copy.deepcopy(model)
+        copies = {"plain": copy.deepcopy(model)}
         steps = {"kernels": make_train_step(model, cfg, make_optimizer(model, cfg)),
-                 "plain": make_train_step(plain, cfg, make_optimizer(plain, cfg), plain=True)}
+                 "plain": make_train_step(copies["plain"], cfg,
+                                          make_optimizer(copies["plain"], cfg), plain=True)}
+        if dt == "fp32":
+            copies["plain_again"] = copy.deepcopy(model)
+            steps["plain_again"] = make_train_step(
+                copies["plain_again"], cfg, make_optimizer(copies["plain_again"], cfg),
+                plain=True)
         rows = []
         for i in range(2):
             row = {}
@@ -2251,20 +2346,22 @@ def _zoo_train(name: str, sets: tuple) -> dict:
                     row["launches"] = {k: v for k, v in launches.items() if v}
                     total.update(launches)
                 else:
-                    check(not any(launches.values()), f"zoo {name}: the plain step launched "
+                    check(not any(launches.values()), f"zoo {name}: the {mode} step launched "
                           f"{launches}")
             row["loss_rel"] = abs(row["kernels"]["loss"] - row["plain"]["loss"]) / abs(
                 row["plain"]["loss"])
-            row["grad_rel_l2"] = _grad_gaps(model, plain)
+            row["grad_rel_l2"] = _grad_gaps(model, copies["plain"])
+            if "plain_again" in copies:
+                row["witness_grad_rel_l2"] = _grad_gaps(copies["plain_again"], copies["plain"])
             rows.append(row)
             bf16 = dt == "bf16"
-            want = {"preprocess_u8_train": 1,
+            want = {"preprocess_u8_train": 1, "si_loss_sums": 1, "si_loss_sums_backward": 1,
                     "flash_attention_backward" + ("_bf16" if bf16 else ""): n_attn,
                     "window_attention_backward" + ("_bf16" if bf16 else ""): n_cross}
             got = {k: row["launches"].get(k, 0) for k in want}
             check(got == want, f"zoo {name} {dt} step {i}: launches {got}, want {want}")
         out[dt] = rows
-        del plain, steps
+        del copies, steps
     emit({"phase": "zoo", "model": name, "part": "train", **out})
     for i, row in enumerate(out["fp32"]):
         check(all(np.isfinite([row[m]["loss"] for m in ("kernels", "plain")])),
@@ -2287,7 +2384,6 @@ def _zoo_train(name: str, sets: tuple) -> dict:
               f"zoo {name}: bf16 {mode} step-0 loss {loss16} vs float32 {loss32}")
     check(all(np.isfinite(r[m]["loss"]) for r in out["bf16"] for m in ("kernels", "plain")),
           f"zoo {name}: non-finite bf16 loss")
-    del model
     return dict(total)
 
 
@@ -2347,19 +2443,102 @@ def _zoo_cli(name: str, sets: tuple) -> dict:
 
 
 def phase_zoo(name: str, sets: tuple) -> dict:
-    """One model of ``ZOO``: serve, train (and the CLI for ``ZOO_CLI``); the
-    path ``zoo_<name>`` holds their launches, and must launch its
-    ``PATH_KERNELS`` and no other."""
+    """One model of ``ZOO``: served from a checkpoint by build_service, then
+    trained (and the CLI for ``ZOO_CLI``); the path ``zoo_<name>`` holds their
+    launches, and must launch its ``PATH_KERNELS`` and no other."""
+    from mde_tpu_torch.tools.serve import build_service
+    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+
     path = f"zoo_{name}"
     t0 = time.perf_counter()
-    total = collections.Counter(_zoo_serve(name, sets))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        cfg = model_cfg(name, *sets, f"paths.results_dir={tmp}")
+        save_checkpoint(checkpoint_path(tmp, cfg.experiment.model_name),
+                        make_model(name, cfg, bias=0.5))
+        total = collections.Counter(_zoo_serve(name, cfg, lambda: build_service(
+            cfg, "cuda", max_batch=2, window_ms=20.0, warmup=True)))
     torch.cuda.empty_cache()
-    total.update(_zoo_train(name, sets))
+    cfg16 = model_cfg(name, *sets)  # bf16 compute, the default
+    # the depth head comfortably positive, as phase_train's flagship: at the
+    # ReLU cliff the loss gradient is ~1/(pred + 1e-6), and with a bias of
+    # 0.5 K3's rounding moved MidasNet's float32 gradient 0.36 rel-L2 from
+    # the plain step's on an H100
+    total.update(_zoo_train(name, cfg16, model_cfg(name, *sets, "framework.compute_dtype=float32"),
+                            make_model(name, cfg16, bias=2.0).cuda()))
     if name == ZOO_CLI:
         total.update(_zoo_cli(name, sets))
     torch.cuda.empty_cache()
     total = {k: total.get(k, 0) for k in read_counts()}
     emit({"phase": "zoo", "model": name, "sets": list(sets), "launches": total,
+          "seconds": time.perf_counter() - t0})
+    check_path_launches(path, total, f"during {path}")
+    return {path: total}
+
+
+# The MiDaS v3.1 loader's DPTs (models/model_loader.py), which the factory
+# does not build: each from ``load_model(name, device="cuda")`` at full width
+# and depth, seed 0, at the loader's input size.
+ZOO_LOADER = ("dpt_beit_large_512", "dpt_beit_large_384", "dpt_beit_base_384",
+              "dpt_swin2_large_384", "dpt_swin2_base_384", "dpt_swin2_tiny_256",
+              "dpt_swin_large_384", "dpt_next_vit_large_384", "dpt_levit_224")
+PATH_KERNELS.update({f"zoo_{name}": ZOO_CONV for name in ZOO_LOADER})
+
+
+def loader_model(name: str, bias: float):
+    """(model on the card, input size, host transform) from ``load_model``
+    with SEED's generator, BEiT's LayerScale gammas then drawn in [0.2, 0.8]
+    from it and the final depth conv's bias raised by ``bias``."""
+    from mde_tpu_torch.models.model_loader import load_model
+    from mde_tpu_torch.nn.beit import BeitBlock
+
+    g = torch.Generator().manual_seed(SEED)
+    model, size, transform = load_model(name, device="cuda", generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BeitBlock):
+                for gamma in (m.gamma_1, m.gamma_2):
+                    gamma.copy_(torch.rand(gamma.shape, generator=g) * 0.6 + 0.2)
+        final_depth_conv(model).bias.add_(bias)
+    return model, size, transform
+
+
+def phase_zoo_loader(name: str) -> dict:
+    """One model of ``ZOO_LOADER``: its host transform on a 426x560 frame and
+    the model on its output; served by ``DepthService(model, cfg, "cuda",
+    max_batch=2)`` over HTTP and trained (``_zoo_serve``, ``_zoo_train``) with
+    ``framework.input_size`` the loader's. Path ``zoo_<name>``."""
+    from mde_tpu_torch.tools.common import set_float32_precision
+    from mde_tpu_torch.tools.serve import DepthService
+
+    path = f"zoo_{name}"
+    t0 = time.perf_counter()
+    set_float32_precision()  # float32 with TF32 off, as the server and the training CLI
+    model, size, transform = loader_model(name, bias=0.5)
+    build_s = time.perf_counter() - t0
+    frame = np.random.default_rng(SEED).uniform(0, 1, (426, 560, 3)).astype(np.float32)
+    x = transform({"image": frame})["image"]
+    with torch.no_grad():
+        pred = model.eval()(torch.from_numpy(x).permute(2, 0, 1)[None].cuda())
+    emit({"phase": "zoo", "model": name, "part": "load", "build_s": build_s,
+          "input_size": list(size), "transform_out": list(x.shape),
+          "pred": list(pred.shape), "params": sum(p.numel() for p in model.parameters())})
+    check(bool(torch.isfinite(pred).all()), f"zoo {name}: non-finite map on the transform's output")
+    sets = (f"framework.input_size=[{size[0]},{size[1]}]",)
+    cfg = model_cfg(name, *sets)
+
+    def start():
+        service = DepthService(model, cfg, "cuda", max_batch=2, window_ms=20.0)
+        service.warmup()
+        return service
+
+    total = collections.Counter(_zoo_serve(name, cfg, start))
+    del model, pred
+    torch.cuda.empty_cache()
+    total.update(_zoo_train(name, cfg, model_cfg(name, *sets, "framework.compute_dtype=float32"),
+                            loader_model(name, bias=2.0)[0]))
+    torch.cuda.empty_cache()
+    total = {k: total.get(k, 0) for k in read_counts()}
+    emit({"phase": "zoo", "model": name, "loader": True, "launches": total,
           "seconds": time.perf_counter() - t0})
     check_path_launches(path, total, f"during {path}")
     return {path: total}
@@ -2873,7 +3052,9 @@ def main() -> int:
         by_path = {}
         for name, sets in ZOO:
             by_path.update(phase_zoo(name, sets))
-        emit({"zoo_launches": by_path})
+        for name in ZOO_LOADER:
+            by_path.update(phase_zoo_loader(name))
+        emit({"zoo_launches": by_path, "seconds": time.perf_counter() - T0})
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
           "--k4-backward-only, --k2-only, --parallel-only and --zoo-only")
@@ -2886,6 +3067,8 @@ def main() -> int:
     by_path["flagship_augment"] = phase_augment()
     for name, sets in ZOO:
         by_path.update(phase_zoo(name, sets))
+    for name in ZOO_LOADER:
+        by_path.update(phase_zoo_loader(name))
     by_path["parallel"] = phase_parallel()
     rows = []
     for name, source, replaces in (
@@ -2907,6 +3090,7 @@ def main() -> int:
                      **kernels[name]})
         missing = ROW_KEYS - set(rows[-1])
         check(not missing, f"kernel row {name} lacks {sorted(missing)}")
+    emit({"seconds": time.perf_counter() - T0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

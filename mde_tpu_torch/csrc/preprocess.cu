@@ -121,20 +121,8 @@ long long stage_bytes_for(const EvalArgs& a, int band) {
   return static_cast<long long>(mde_k3::max_source_rows(a.scale_h, a.in_h, band)) * a.row_bytes;
 }
 
-}  // namespace
-
-// Output rows a block: the most (up to 8) that still give four blocks an SM,
-// fewer where the staged rows would not fit. A few integer steps a call, so
-// nothing is cached.
-extern "C" int mde_preprocess_u8_f32(const uint8_t* in, float* out, int batch, int in_h,
-                                     int in_w, int out_h, int out_w, float mean0, float mean1,
-                                     float mean2, float std0, float std1, float std2,
-                                     void* stream) {
-  if (batch <= 0 || batch > 65535 || in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 ||
-      static_cast<long long>(in_w) * 3 > 0x7fffffffLL ||
-      static_cast<long long>(out_w) + 3 > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The geometry of a shape: scales, source row bytes and 4-wide output quads.
+EvalArgs shape_args(int in_h, int in_w, int out_h, int out_w) {
   EvalArgs a{};
   a.in_h = in_h;
   a.in_w = in_w;
@@ -142,27 +130,54 @@ extern "C" int mde_preprocess_u8_f32(const uint8_t* in, float* out, int batch, i
   a.out_w = out_w;
   a.row_bytes = in_w * 3;
   a.quads = (out_w + 3) / 4;
-  a.vec_load = (a.row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0) ? 1 : 0;
-  a.vec_store = (out_w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) ? 1 : 0;
   a.scale_h = static_cast<float>(in_h) / static_cast<float>(out_h);
   a.scale_w = static_cast<float>(in_w) / static_cast<float>(out_w);
+  return a;
+}
+
+// Output rows a block (``a.band``): the most (up to 8) that still give four
+// blocks an SM, fewer where the staged rows would not fit; the staged bytes
+// (0: rows too wide for the budget, the taps come from device memory);
+// returns the threads a block. A few integer steps a call, so nothing is
+// cached.
+int plan_launch(EvalArgs& a, int batch) {
+  const long long want = 4LL * mde_k3::sm_count();
+  a.band = 1;
+  while (a.band < kMaxBand &&
+         batch * static_cast<long long>((a.out_h + 2 * a.band - 1) / (2 * a.band)) >= want) {
+    a.band *= 2;
+  }
+  while (a.band > 1 && stage_bytes_for(a, a.band) > mde_k3::kStageBudget) a.band /= 2;
+  const long long stage = stage_bytes_for(a, a.band);
+  a.stage_bytes = stage <= mde_k3::kStageBudget ? static_cast<int>(stage) : 0;
+  return a.quads < kMaxThreads ? (a.quads + 31) / 32 * 32 : kMaxThreads;
+}
+
+bool valid_shape(int batch, int in_h, int in_w, int out_h, int out_w) {
+  return batch > 0 && batch <= 65535 && in_h > 0 && in_w > 0 && out_h > 0 && out_w > 0 &&
+         static_cast<long long>(in_w) * 3 <= 0x7fffffffLL &&
+         static_cast<long long>(out_w) + 3 <= 0x7fffffffLL;
+}
+
+}  // namespace
+
+extern "C" int mde_preprocess_u8_f32(const uint8_t* in, float* out, int batch, int in_h,
+                                     int in_w, int out_h, int out_w, float mean0, float mean1,
+                                     float mean2, float std0, float std1, float std2,
+                                     void* stream) {
+  if (!valid_shape(batch, in_h, in_w, out_h, out_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EvalArgs a = shape_args(in_h, in_w, out_h, out_w);
+  a.vec_load = (a.row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0) ? 1 : 0;
+  a.vec_store = (out_w % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) ? 1 : 0;
   const float mean[3] = {mean0, mean1, mean2};
   const float sd[3] = {std0, std1, std2};
   for (int ch = 0; ch < 3; ++ch) {
     a.mul[ch] = static_cast<float>(1.0 / (255.0 * sd[ch]));
     a.add[ch] = static_cast<float>(-static_cast<double>(mean[ch]) / sd[ch]);
   }
-  const long long want = 4LL * mde_k3::sm_count();
-  a.band = 1;
-  while (a.band < kMaxBand &&
-         batch * static_cast<long long>((out_h + 2 * a.band - 1) / (2 * a.band)) >= want) {
-    a.band *= 2;
-  }
-  while (a.band > 1 && stage_bytes_for(a, a.band) > mde_k3::kStageBudget) a.band /= 2;
-  const long long stage = stage_bytes_for(a, a.band);
-  // rows too wide for the budget: the taps come from device memory
-  a.stage_bytes = stage <= mde_k3::kStageBudget ? static_cast<int>(stage) : 0;
-  const int threads = a.quads < kMaxThreads ? (a.quads + 31) / 32 * 32 : kMaxThreads;
+  const int threads = plan_launch(a, batch);
   const dim3 grid((out_h + a.band - 1) / a.band, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.stage_bytes > 0) {
@@ -171,4 +186,20 @@ extern "C" int mde_preprocess_u8_f32(const uint8_t* in, float* out, int batch, i
     preprocess_u8_kernel<false><<<grid, threads, 0, s>>>(in, out, a);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What mde_preprocess_u8_f32 launches for a shape on the current card, as
+// four ints: output rows a block, staged bytes a block, threads a block and
+// blocks a sample.
+extern "C" int mde_preprocess_u8_plan(int batch, int in_h, int in_w, int out_h, int out_w,
+                                      int* plan) {
+  if (!valid_shape(batch, in_h, in_w, out_h, out_w)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EvalArgs a = shape_args(in_h, in_w, out_h, out_w);
+  plan[2] = plan_launch(a, batch);
+  plan[0] = a.band;
+  plan[1] = a.stage_bytes;
+  plan[3] = (out_h + a.band - 1) / a.band;
+  return 0;
 }

@@ -51,12 +51,19 @@ def _model_class(model_cfg):
     raise ValueError(f"Unknown model_type: {model_type!r}")
 
 
-def build_model(model_cfg, device, generator: torch.Generator):
-    """Construct the module for a config ``model`` section on ``device``, with
-    weights drawn from ``generator`` (a CPU ``torch.Generator``)."""
-    cls, kwargs = _model_class(model_cfg)
+def build_module(cls, kwargs: dict, device, generator: torch.Generator):
+    """``cls(**kwargs)`` on ``device``, with weights drawn from ``generator``
+    (a CPU ``torch.Generator``): built on the meta device, then given values
+    on the CPU by ``init_weights_``."""
     with torch.device("meta"):
         model = cls(**kwargs)
     model = model.to_empty(device="cpu")
     init_weights_(model, generator)
     return model.to(device)
+
+
+def build_model(model_cfg, device, generator: torch.Generator):
+    """Construct the module for a config ``model`` section on ``device``, with
+    weights drawn from ``generator`` (a CPU ``torch.Generator``)."""
+    cls, kwargs = _model_class(model_cfg)
+    return build_module(cls, kwargs, device, generator)

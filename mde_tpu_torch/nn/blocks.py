@@ -46,6 +46,34 @@ def LayerNorm(c: int, eps: float = 1e-5) -> nn.LayerNorm:
     return nn.LayerNorm(c, eps=eps)
 
 
+_CONSTANTS = {}
+
+
+def device_constant(fn, *args, device) -> torch.Tensor:
+    """``fn(*args)`` (an index, a mask: a numpy array or a tensor) as a tensor
+    on ``device``, made once a device and kept. Made outside inference mode,
+    so that a train step's autograd may save it after a predict step made it."""
+    key = (fn, args, str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.as_tensor(fn(*args)).to(device)
+    return t
+
+
+def biased_attention(q, k, v, bias=None, scale: float = 1.0):
+    """softmax(q k^T * scale + bias) v over (..., N, D) heads, the einsum
+    attention of mde_tpu's BEiT, Swin, LeViT and Next-ViT trunks: the logits
+    and the softmax in float32 (mde_tpu forms them with
+    ``preferred_element_type=float32``; under bf16 autocast the product is
+    cast up before the bias is added), the probabilities cast to v's type.
+    ``bias`` broadcasts against the (..., Nq, Nk) logits."""
+    logits = torch.matmul(q, k.transpose(-2, -1)).float() * scale
+    if bias is not None:
+        logits = logits + bias
+    return torch.matmul(logits.softmax(dim=-1).to(v.dtype), v)
+
+
 def interpolate(x, scale_factor=None, size=None, align_corners=False):
     """The reference's Interpolate module as a function (blocks.py:208-240)."""
     if size is None:
@@ -150,9 +178,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Convs (grouped ones too), transposed convs and Linears take torch's
     defaults (kaiming-uniform with a=sqrt(5), bias uniform in +-1/sqrt(fan_in));
-    norms (batch, layer and group) are ones/zeros and BN running statistics
-    0/1. A module with leaves of its own (the ViTs' tokens and pos-embed,
-    LayerScale, DGR's Laplacian taps, LogBinomial's buffers) sets them in its
+    norms (batch (1d and 2d), layer and group) are ones/zeros and BN running
+    statistics 0/1. A module with leaves of its own (the ViTs' tokens and
+    pos-embed, LayerScale, DGR's Laplacian taps, LogBinomial's buffers, the
+    bias tables and index buffers of BEiT, Swin and LeViT) sets them in its
     ``init_leaves_``. Every
     draw comes from ``generator``, so a seed fixes the weights.
     """
@@ -162,10 +191,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _uniform_(m.weight, math.sqrt(1.0 / fan_in) if fan_in else 0.0, generator)
             if m.bias is not None:
                 _uniform_(m.bias, 1.0 / math.sqrt(fan_in) if fan_in else 0.0, generator)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
                 m.num_batches_tracked.zero_()

@@ -181,6 +181,8 @@ def load():
             lib.mde_si_loss_backward_f32.restype = i
             lib.mde_preprocess_u8_f32.argtypes = [p, p] + [i] * 5 + [f] * 6 + [p]
             lib.mde_preprocess_u8_f32.restype = i
+            lib.mde_preprocess_u8_plan.argtypes = [i] * 5 + [p]
+            lib.mde_preprocess_u8_plan.restype = i
             lib.mde_preprocess_u8_train_plan.argtypes = [i] * 5 + [p]
             lib.mde_preprocess_u8_train_plan.restype = i
             lib.mde_preprocess_u8_train_f32.argtypes = [p, p, p, ll, p, p] + [i] * 7 + [f] * 6 + [p]
@@ -717,6 +719,18 @@ def _preprocess_u8_cuda(rgb_u8: torch.Tensor, height: int, width: int) -> torch.
     _check(lib, err, "preprocess_u8")
     preprocess_u8.launches += 1
     return out
+
+
+def preprocess_u8_plan(batch: int, h: int, w: int, oh: int, ow: int) -> dict:
+    """What the eval form launches for a shape on the current card (asked of
+    ``mde_preprocess_u8_plan``, the launcher's own choice): output rows a
+    block, the source rows' staged bytes a block (0: the taps come from
+    device memory), threads a block and blocks a sample."""
+    plan = (ctypes.c_int * 4)()
+    lib = load()
+    _check(lib, lib.mde_preprocess_u8_plan(batch, h, w, oh, ow, ctypes.addressof(plan)),
+           "preprocess_u8 plan")
+    return dict(zip(("rows_per_block", "stage_bytes", "threads", "blocks_per_sample"), plan))
 
 
 def _preprocess_u8_fake(rgb_u8: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -155,22 +155,34 @@ def _config(job: dict):
 def _batchnorm_job(job: dict, device, rank: int, world: int) -> dict:
     """The cross-process BatchNorm on this rank's rows of ``input`` (x, dy,
     and the layer's state_dict): its output, input gradient, its share of
-    the weight and bias gradients, and the running statistics after."""
+    the parameters' gradients (``grads``; a BatchNorm2d's weight and bias
+    also as ``dw`` and ``db``), and the state after. ``layer``:
+    "batchnorm2d" (the default), or "linear_bn" (LeViT's Linear + BatchNorm1d
+    over (B, N, C) tokens, made cross-process by ``data_parallel``'s
+    conversion)."""
     from .distributed import local_row_block
     from .sync_batchnorm import convert_sync_batchnorm
 
     data = torch.load(job["input"], weights_only=True)
+    state = data["state_dict"]
+    if job.get("layer") == "linear_bn":
+        from ..nn.levit import LinearBN
+
+        layer = LinearBN(state["c.weight"].shape[1], state["c.weight"].shape[0])
+    else:
+        layer = torch.nn.BatchNorm2d(data["x"].shape[1])
     # the parameters in their own type: float32 beside a bf16 input, as autocast runs it
-    bn = torch.nn.BatchNorm2d(data["x"].shape[1]).to(data["state_dict"]["weight"].dtype)
-    bn.load_state_dict(data["state_dict"])
-    convert_sync_batchnorm(bn).to(device).train()
+    layer = layer.to(state["bn.weight" if "bn.weight" in state else "weight"].dtype)
+    layer.load_state_dict(state)
+    convert_sync_batchnorm(layer).to(device).train()
     lo, hi = local_row_block(data["x"].shape[0], rank, world)
     x = data["x"][lo:hi].to(device).requires_grad_(True)
-    y = bn(x)
+    y = layer(x)
     y.backward(data["dy"][lo:hi].to(device))
-    return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "dw": bn.weight.grad.cpu(),
-            "db": bn.bias.grad.cpu(),
-            "state_dict": {k: v.cpu() for k, v in bn.state_dict().items()}}
+    grads = {k: p.grad.cpu() for k, p in layer.named_parameters()}
+    return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "dw": grads.get("weight"),
+            "db": grads.get("bias"), "grads": grads,
+            "state_dict": {k: v.cpu() for k, v in layer.state_dict().items()}}
 
 
 def _steps_job(job: dict, device, rank: int, world: int) -> dict:
@@ -254,7 +266,8 @@ def run_rank(spec: dict) -> None:
     ``out`` (a directory), and ``jobs``, each a dict with its ``name`` and
     ``mode``:
 
-    - ``batchnorm``: ``input``, a file of x, dy and a BatchNorm2d state_dict;
+    - ``batchnorm``: ``input``, a file of x, dy and the layer's state_dict,
+      and ``layer`` ("batchnorm2d" or "linear_bn");
     - ``steps``: ``model`` (a pickled module this program saved), ``sets``
       (``--set`` overrides of the default config), ``batches`` (a file of
       global batches, dicts of ``rgb``/``depth`` arrays: uint8 and raw

@@ -19,8 +19,9 @@ in plain PyTorch on ``all_reduce`` alone:
   weight and bias gradients are this process's own sums (the
   ``DistributedDataParallel`` reduction adds the processes' shares).
 
-``SyncBatchNorm`` subclasses ``nn.BatchNorm2d``, so state_dict keys are
-unchanged; ``convert_sync_batchnorm`` swaps it in (``parallel.mesh.
+``SyncBatchNorm`` subclasses ``nn.BatchNorm2d`` (``SyncBatchNorm1d``,
+``nn.BatchNorm1d``), so state_dict keys are unchanged;
+``convert_sync_batchnorm`` swaps them in (``parallel.mesh.
 data_parallel``, which the training tool calls at W > 1 only), and
 ``local_statistics`` turns the reduction off for a batch that runs whole on
 every process. In eval mode, and in a process that joined no process group,
@@ -88,10 +89,10 @@ class _SyncBatchNormFunction(torch.autograd.Function):
         return dx.to(ctx.input_dtype), grad_weight, grad_bias, None
 
 
-class SyncBatchNorm(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training-mode statistics span every process
-    (module docstring). ``sync`` False (``local_statistics``) falls back to
-    this process's batch."""
+class _SyncForward:
+    """The forward of both classes below: training-mode statistics over every
+    process (module docstring). ``sync`` False (``local_statistics``) falls
+    back to this process's batch."""
 
     sync = True
 
@@ -113,15 +114,28 @@ class SyncBatchNorm(nn.BatchNorm2d):
         return y
 
 
+class SyncBatchNorm(_SyncForward, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with cross-process statistics."""
+
+
+class SyncBatchNorm1d(_SyncForward, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with cross-process statistics: LeViT's BN over
+    (B*N, C) tokens (nn/levit.py::LinearBN)."""
+
+
+_SYNC = {nn.BatchNorm2d: SyncBatchNorm, nn.BatchNorm1d: SyncBatchNorm1d}
+
+
 def convert_sync_batchnorm(model: nn.Module) -> nn.Module:
-    """Make every ``nn.BatchNorm2d`` of ``model`` a ``SyncBatchNorm`` in place,
-    keeping its parameters and buffers (the same tensors, so an optimizer
-    built before still holds them). Returns ``model``."""
+    """Make every ``nn.BatchNorm2d`` and ``nn.BatchNorm1d`` of ``model`` a
+    ``SyncBatchNorm`` / ``SyncBatchNorm1d`` in place, keeping its parameters
+    and buffers (the same tensors, so an optimizer built before still holds
+    them). Returns ``model``."""
     for m in model.modules():
-        if type(m) is nn.BatchNorm2d:
+        if type(m) in _SYNC:
             if not m.affine:
                 raise ValueError("SyncBatchNorm needs an affine BatchNorm")
-            m.__class__ = SyncBatchNorm
+            m.__class__ = _SYNC[type(m)]
     return model
 
 
@@ -129,7 +143,7 @@ def convert_sync_batchnorm(model: nn.Module) -> nn.Module:
 def local_statistics(model: nn.Module):
     """Within the block, the ``SyncBatchNorm`` layers of ``model`` use this
     process's batch alone: a batch that runs replicated is already whole."""
-    layers = [m for m in model.modules() if isinstance(m, SyncBatchNorm)]
+    layers = [m for m in model.modules() if isinstance(m, _SyncForward)]
     for m in layers:
         m.sync = False
     try:

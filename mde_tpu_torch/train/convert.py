@@ -4,9 +4,12 @@
 the layouts of its ``convert_tensor`` (mde_tpu/train/torch_import.py:49-67):
 ``map_midas_small_key`` (with ``map_localbins_key`` and ``map_dgr_key``),
 ``map_midas_semantics_key``, ``map_simple_unet_key``, ``map_midas_net_key``,
-``map_dpt_key`` (ViT and hybrid) and ``map_depth_anything_key``. It takes the
-flax parameter and batch-statistics trees as nested dicts of numpy arrays
-(flax names) and needs no flax or jax itself:
+the DPT maps (``map_dpt_key`` for ViT and hybrid, ``map_dpt_beit_key``,
+``map_dpt_swin_key`` V1 and V2, ``map_dpt_levit_key``; Next-ViT has no map,
+and the port keeps mde_tpu's names under ``pretrained.model``) and
+``map_depth_anything_key``. It takes the flax parameter and batch-statistics
+trees as nested dicts of numpy arrays (flax names) and needs no flax or jax
+itself:
 
   conv            HWIO          -> OIHW (depthwise and grouped too)
   conv-transpose  (H, W, I, O)  -> (I, O, H, W)
@@ -14,6 +17,15 @@ flax parameter and batch-statistics trees as nested dicts of numpy arrays
   BatchNorm       scale/bias/mean/var -> weight/bias/running_mean/running_var
   LayerNorm, GroupNorm  scale/bias    -> weight/bias
   ViTs            pos_embed, cls_token, LayerScale gammas as they are
+  bias tables     BEiT's, Swin V1's, LeViT's; Swin V2's logit_scale
+
+then the DPT trunks' fused layouts (``_fuse_dpt_trunk``): BEiT's q, k and v
+into ``qkv.weight`` with ``q_bias``/``v_bias`` and its table's three class
+slots into timm's order; Swin V2's qkv bias into ``q_bias``/``v_bias``; Swin's
+merge reduction (and V1's 4C norm) into timm's 2x2 order; LeViT's q and kv
+into timm's per-head [q|k|v] (and a subsample's kv into per-head [k|v]),
+weights and BN vectors alike. LeViT's bias-table offsets are in the same
+(lexicographic) order on both sides.
 
 The reference grammar's dead keys (each model's ``DEAD_KEY_PREFIXES``: modules
 no forward reads, and the constants DGR and LocalBins rebuild) and BN's
@@ -140,6 +152,29 @@ _MIDAS_NET_RULES = [
     (r"output_conv(\d)", lambda m: f"scratch.output_conv.{m[1]}"),
 ]
 
+# LeViT's stage attention/MLP pairs start at flat blocks 0, 10 and 20
+_LEVIT_FIRST = (0, 10, 20)
+_LEVIT_LAYER = {"fc1": "0", "fc2": "2", "proj": "proj.1", "linear": "c"}
+
+
+def _levit_block(m):
+    """A LeViT flax module -> its place in timm's flat ``blocks``: stage s's
+    pair b at 2b (+1) past _LEVIT_FIRST[s], the subsample attention and MLP
+    opening stage s at 10s - 2 and 10s - 1. Stage blocks and every MLP sit in
+    a Residual (``m``); a subsample's q is Sequential(Subsample, LinearNorm)."""
+    stage = re.fullmatch(r"stage(\d)_(attn|mlp)(\d)", m[1])
+    if stage:
+        flat = _LEVIT_FIRST[int(stage[1])] + 2 * int(stage[3]) + (stage[2] == "mlp")
+        head = [str(flat), "m"]
+    else:
+        sub = re.fullmatch(r"downsample(\d)_(attn|mlp)", m[1])
+        head = [str(10 * int(sub[1]) - 2 + (sub[2] == "mlp"))] + (["m"] if sub[2] == "mlp" else [])
+    rest = [_LEVIT_LAYER.get(p, p) for p in (m[4] or "").split("/") if p]
+    if rest[:1] == ["q"] and not stage:
+        rest[0] = "q.1"
+    return ".".join(["pretrained.model.blocks", *head, *rest])
+
+
 _RESNETV2 = "pretrained.model.patch_embed.backbone"
 _PREACT_RENAME = {"gn1": "norm1", "gn2": "norm2", "gn3": "norm3", "downsample": "downsample.conv"}
 
@@ -162,6 +197,24 @@ _DPT_RULES = [
     (r"scratch/(layer\d_rn)", lambda m: f"scratch.{m[1]}"),
     (r"(refinenet\d/.+)", lambda m: f"scratch.{m[1]}"),
     (r"head_conv(\d)", lambda m: f"scratch.output_conv.{m[1]}"),
+    # Swin: stage i's blocks, and the merge that opens stage i (timm's
+    # downsample closing stage i - 1)
+    (r"pretrained/patch_norm", lambda m: "pretrained.model.patch_embed.norm"),
+    (r"pretrained/merge(\d)/(\w+)",
+     lambda m: f"pretrained.model.layers.{int(m[1]) - 1}.downsample.{m[2]}"),
+    (r"pretrained/stage(\d)_block(\d+)/attn/cpb_fc(\d)",
+     lambda m: f"pretrained.model.layers.{m[1]}.blocks.{m[2]}.attn.cpb_mlp."
+               f"{2 * (int(m[3]) - 1)}"),
+    (r"pretrained/stage(\d)_block(\d+)/((attn|norm1|norm2|mlp)(/.+)?)",
+     lambda m: f"pretrained.model.layers.{m[1]}.blocks.{m[2]}.{m[3]}"),
+    # Next-ViT: mde_tpu's names
+    (r"pretrained/(stem\d|stage\d_block\d+)/(.+)", lambda m: f"pretrained.model.{m[1]}.{m[2]}"),
+    # LeViT: the stem's ConvNorms at 0, 2, 4, 6; timm's flat blocks
+    (r"pretrained/stem_(conv|bn)(\d)",
+     lambda m: f"pretrained.model.patch_embed.{2 * int(m[2])}.{'c' if m[1] == 'conv' else 'bn'}"),
+    (r"pretrained/(stage\d_(attn|mlp)\d|downsample\d_(attn|mlp))(/.+)?", _levit_block),
+    (r"stem_transpose/up(\d)(_bn)?",
+     lambda m: f"scratch.stem_transpose.{2 * (int(m[1]) - 1)}.{'bn' if m[2] else 'c'}"),
 ]
 
 MODEL_RULES = {
@@ -174,6 +227,8 @@ MODEL_RULES = {
 }
 
 _NORM_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_AS_IS = ("cls_token", "pos_embed", "gamma", "relative_position_bias_table", "logit_scale",
+          "attention_biases")
 
 
 def _module_key(rules, path: str) -> str:
@@ -188,13 +243,14 @@ def _convert(module: str, wrapper, leaf: str, value: np.ndarray):
     """-> (torch leaf name, array in torch layout) for one flax leaf."""
     if wrapper in ("BatchNorm_0", "LayerNorm_0") or leaf == "scale":  # GroupNorm: no wrapper
         return _NORM_LEAF[leaf], value
-    if leaf == "bias" or leaf in ("cls_token", "pos_embed", "gamma"):
+    if leaf == "bias" or leaf in _AS_IS:
         return leaf, value
     if leaf != "kernel":
         raise KeyError(f"unexpected flax leaf {module}/{leaf}")
     if value.ndim == 2:
         return "weight", np.transpose(value, (1, 0))  # Dense (in, out) -> (out, in)
-    if re.search(r"resize_layers\.[01]$|spatial_upsample\.\d$|act_postprocess[12]\.4$", module):
+    if re.search(r"resize_layers\.[01]$|spatial_upsample\.\d$|act_postprocess[12]\.4$"
+                 r"|stem_transpose\.[02]\.c$", module):
         return "weight", np.transpose(value, (2, 3, 0, 1))  # (H, W, I, O) -> (I, O, H, W)
     return "weight", np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW, grouped and depthwise too
 
@@ -205,6 +261,68 @@ def _flatten(tree, prefix=()):
             yield from _flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _groups(t: torch.Tensor, n: int, order, dim: int = 0) -> torch.Tensor:
+    """``t`` cut into ``n`` equal groups along ``dim``, put back in ``order``."""
+    parts = t.chunk(n, dim)
+    return torch.cat([parts[i] for i in order], dim)
+
+
+def _per_head(*parts: torch.Tensor, heads: int) -> torch.Tensor:
+    """Row blocks each holding ``heads`` heads one after another -> the heads'
+    rows interleaved: head 0 of every part, then head 1, ..."""
+    return torch.cat([r for h in zip(*(p.chunk(heads) for p in parts)) for r in h])
+
+
+def _fuse_dpt_trunk(sd: dict) -> dict:
+    """mde_tpu's separate projections -> the fused layouts of timm's BEiT,
+    Swin V2 and LeViT (module docstring). ``sd`` holds the converted leaves
+    under their port names; returns the port's state_dict."""
+    out = dict(sd)
+    for key in list(sd):
+        if re.search(r"\.gamma_[12]\.gamma$", key):  # BEiT's LayerScales are bare tensors
+            out[key[:-len(".gamma")]] = out.pop(key)
+        elif key.endswith(".attn.q.weight"):  # BEiT: q, k, v
+            base = key[:-len("q.weight")]
+            out[f"{base}qkv.weight"] = torch.cat([out.pop(f"{base}{p}.weight") for p in "qkv"])
+            out[f"{base}q_bias"] = out.pop(f"{base}q.bias")
+            out[f"{base}v_bias"] = out.pop(f"{base}v.bias")
+            # mde_tpu's class slots (cls-cls, cls-tok, tok-cls) -> timm's
+            # (cls-tok, tok-cls, cls-cls)
+            table = out[f"{base}relative_position_bias_table"]
+            out[f"{base}relative_position_bias_table"] = torch.cat(
+                [table[:-3], table[-3:][[1, 2, 0]]])
+        elif key.endswith(".attn.logit_scale"):  # Swin V2: q and v biases
+            base = key[:-len("logit_scale")]
+            # timm's grammar has no k bias: mde_tpu's k third (zero at init,
+            # trained by its V2) is dropped
+            q, _, v = out.pop(f"{base}qkv.bias").chunk(3)
+            out[f"{base}q_bias"], out[f"{base}v_bias"] = q, v
+        elif key.endswith(".downsample.reduction.weight"):  # Swin: timm's 2x2 order
+            out[key] = _groups(out[key], 4, (0, 2, 1, 3), dim=1)
+            norm = key.replace("reduction.weight", "norm.")
+            if out[f"{norm}weight"].numel() == out[key].shape[1]:  # V1 norms the 4C concat
+                for leaf in ("weight", "bias"):
+                    out[f"{norm}{leaf}"] = _groups(out[f"{norm}{leaf}"], 4, (0, 2, 1, 3))
+        elif key.endswith(".m.q.c.weight"):  # LeViT attention: per-head [q|k|v]
+            base = key[:-len("q.c.weight")]
+            heads = sd[key].shape[0] // 32
+            for leaf in ("c.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var"):
+                if f"{base}q.{leaf}" not in out:
+                    continue
+                q, kv = out.pop(f"{base}q.{leaf}"), out.pop(f"{base}kv.{leaf}")
+                k, v = kv[:q.shape[0]], kv[q.shape[0]:]
+                out[f"{base}qkv.{leaf}"] = _per_head(q, k, v, heads=heads)
+        elif key.endswith(".q.1.c.weight"):  # LeViT subsample: per-head [k|v]
+            base = key[:-len("q.1.c.weight")]
+            heads = sd[key].shape[0] // 32
+            for leaf in ("c.weight", "bn.weight", "bn.bias", "bn.running_mean", "bn.running_var"):
+                if f"{base}kv.{leaf}" in out:
+                    kv = out[f"{base}kv.{leaf}"]
+                    k, v = kv[:sd[key].shape[0]], kv[sd[key].shape[0]:]
+                    out[f"{base}kv.{leaf}"] = _per_head(k, v, heads=heads)
+    return out
 
 
 def state_dict_from_flax(params, batch_stats, model: str = "MidasNetSemantics") -> dict:
@@ -222,4 +340,4 @@ def state_dict_from_flax(params, batch_stats, model: str = "MidasNetSemantics") 
             module = _module_key(rules, "/".join(mod))
             name, arr = _convert(module, wrapper, leaf, np.asarray(value, np.float32))
             out[f"{module}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
-    return out
+    return _fuse_dpt_trunk(out) if model == "DPTDepthModel" else out

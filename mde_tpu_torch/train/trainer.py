@@ -112,7 +112,7 @@ def forward_backward(model, cfg, rgb, depth, dtype=torch.float32, plain: bool = 
     with torch.autocast(rgb.device.type, dtype=dtype, enabled=dtype != torch.float32):
         pred = model(rgb, plain=plain)
     # the loss in float32, or float64 for a float64 model
-    pred = pred if pred.dtype == torch.float64 else pred.float()
+    pred = _at_target(pred if pred.dtype == torch.float64 else pred.float(), depth)
     total, parts = combined_loss(pred, depth, cfg, rgb=rgb,
                                  sums=si_loss_sums_plain if plain else si_loss_sums,
                                  sharded=sharded)
@@ -180,10 +180,20 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = F
     return step
 
 
+def _at_target(pred, depth):
+    """``pred`` at the target's size. Only DPT-LeViT's map differs: it is 6
+    pixels short of its input (its transposed convs give 2n - 1), which
+    mde_tpu's train step cannot take; it is resized with align corners, as
+    mde_tpu's ``evaluate_full_suite`` resizes (trainer.py:617)."""
+    if pred.shape[-2:] == depth.shape[-2:]:
+        return pred
+    return resize_bilinear(pred, depth.shape[-2:], align_corners=True)
+
+
 def _eval_forward(model, cfg, rgb_u8, depth_raw):
     input_size = tuple(int(s) for s in cfg.framework.input_size)
     rgb, depth = preprocess_eval(rgb_u8, depth_raw, input_size=input_size)
-    return rgb, depth, model(rgb)
+    return rgb, depth, _at_target(model(rgb), depth)
 
 
 def make_eval_step(model, cfg) -> Callable:

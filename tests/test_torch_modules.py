@@ -203,10 +203,19 @@ def test_dinov2_head():
 @pytest.mark.parametrize("model", ["beitl16_512", "swin2l24_384", "levit_384",
                                    "next_vit_large_6m"])
 def test_unported_models_raise_with_their_roadmap_item(model):
-    """Every factory branch is ported; the DPT trunks that only mde_tpu's
-    model_loader reaches are ROADMAP item 6.6 and raise naming it."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*6\.6"):
-        DPTDepthModel(model)
+    """The DPT trunks that only mde_tpu's model_loader reaches were ROADMAP
+    item 6.6 and raised naming it; they are ported now: each builds (on the
+    meta device) with a scratch conv a level of its width, and only a name
+    outside ``DPT_BACKBONE_HOOKS`` raises, as mde_tpu's DPT does."""
+    from mde_tpu_torch.models.dpt import DPT_BACKBONE_CHANNELS
+
+    with torch.device("meta"):
+        built = DPTDepthModel(model)
+    widths = [getattr(built.scratch, f"layer{i + 1}_rn").in_channels
+              for i in range(len(DPT_BACKBONE_CHANNELS[model]))]
+    assert widths == list(DPT_BACKBONE_CHANNELS[model])
+    with pytest.raises(NotImplementedError, match="is not implemented; available"):
+        DPTDepthModel(model + "_v2")
 
 
 def test_registry_has_only_the_flagship_encoder():

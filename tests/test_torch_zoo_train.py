@@ -5,8 +5,9 @@ two new models, in the port against the JAX package's, at float32 on the CPU.
   combination of mde_tpu/models/factory.py:39-66 (the DPT_Large ViT narrowed
   in both packages, as in tests/test_torch_zoo_models.py) as the right class,
   with JAX's parameter count plus the reference grammar's dead keys, the
-  same weights from the same seed; the other DPT backbones raise naming
-  ROADMAP item 6.6.
+  same weights from the same seed; a backbone outside the DPT table raises
+  as mde_tpu's does (the loader's BEiT, Swin, LeViT and Next-ViT DPTs:
+  tests/test_torch_dpt_loader.py).
 - One step-synced train step against JAX for MiDaS-small + LocalBins + DGR
   and for U-Net (64x96, B=2, every loss term on), their weights from
   tests/test_torch_zoo_models.py's cases, the same post-pipeline inputs on
@@ -101,8 +102,8 @@ def test_factory_builds_every_branch(key):
 
 
 def test_factory_refuses_other_backbones():
-    with pytest.raises(NotImplementedError, match="6.6"):
-        DPTDepthModel("beitl16_384")
+    with pytest.raises(NotImplementedError, match="is not implemented; available"):
+        DPTDepthModel("beitl16_224")
     cfg = config.defaults()
     cfg.model.model_type = "MiDaS_large"
     with pytest.raises(ValueError, match="Unknown model_type"):
