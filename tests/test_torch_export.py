@@ -255,11 +255,18 @@ def test_weights_stored_once(models, tmp_path):
 
 def test_fresh_process_loads_without_model_code(models):
     """A new interpreter loads the archive and predicts with no module of
-    mde_tpu_torch.models imported, and gives the bits of this process."""
+    mde_tpu_torch.models imported, and gives the bits of this process.
+
+    The child runs at this process's thread count: the CPU convolutions and
+    GEMMs split their sums by thread count, so the same program at another
+    count rounds differently (at the machine's default of 8 threads against
+    this module's 2: 1,615 of 9,600 elements apart, by up to 8.94e-8). The
+    comparison stays bit for bit: same program, same threads, same bits."""
     path = models["da2"][-2]
     u8 = _batch(11, 2)
     script = (
-        "import sys, numpy as np\n"
+        "import sys, numpy as np, torch\n"
+        f"torch.set_num_threads({torch.get_num_threads()})\n"
         "from mde_tpu_torch.train.export import load_exported\n"
         f"p = load_exported({str(path)!r}, 'cpu')\n"
         f"u8 = np.random.default_rng(11).integers(0, 256, (2, {NATIVE[0]}, {NATIVE[1]}, 3), "
