@@ -6,6 +6,7 @@ paths on one CUDA card.
     python3 chip_smoke.py --k2-only            # K2's checks and times alone
     python3 chip_smoke.py --parallel-only      # the data-parallel phase alone
     python3 chip_smoke.py --zoo-only           # the zoo phase alone
+    python3 chip_smoke.py --export-only        # the zoo's export phase alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
@@ -99,7 +100,7 @@ Phases, each printing JSON lines:
               peak memory from device_memory_stats, and at most two pageable
               host-to-card copies a step;
   8. export   for each model, inside train (c)'s directory: the export CLI
-              writes an archive (flagship buckets 1-8 on (c)'s checkpoint,
+              writes an archive (flagship buckets 1-2 on (c)'s checkpoint,
               DA-V2-S 1-2 on the serve phase's weights), with its seconds a
               bucket and its MB beside the state_dict's; a fresh interpreter
               loads it with no model code and predicts each bucket, held
@@ -132,7 +133,26 @@ Phases, each printing JSON lines:
               plain step against itself. For ``ZOO_CLI`` the training CLI
               for one epoch and the evaluation tool on its checkpoint.
               Path ``zoo_<model>``: all of it.
- 10. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
+ 10. export_zoo the factory's seven through the export CLI (--max-batch 2) on
+              the zoo phase's weights, MiDaS-small + LocalBins + DGR also for
+              the CPU platform (its CPU programs run on this machine's CPU
+              against the plain live step there); one loader DPT of each
+              trunk family (BEiT-B/384, Swin2-T/256, Swin-L/384, LeViT/224,
+              Next-ViT-L/384) through export_predict at bucket 1; each
+              bucket's seconds to export and each archive's MB; one fresh
+              interpreter loads every archive with no model code and no JAX,
+              each bucket held to the live step on the same weights with
+              its launches (K4 24 a call on DPT_Large, 12 on DPT_Hybrid and
+              the flagship + LocalBins) and the live step's PLAIN_OPS (a
+              model's own softmaxes only); DPT_Large's archive served by
+              ``python -m mde_tpu_torch.tools.serve --exported`` to
+              concurrent clients, its replies against the live step, then
+              stopped with SIGTERM. Paths ``export_<model>``.
+ 11. examples the three port examples (examples/torch_*.py) at once, each a
+              child process on the card with --epochs 1 on the data it
+              generates: exit 0, finite losses, their predictions, CSV or
+              checkpoint, and their launches (paths ``examples_<name>``).
+ 12. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
               card each over NCCL where there are two cards or more, else
               two ranks sharing card 0 over gloo (named on the line), each
               a process of parallel.launch: three train steps at global
@@ -155,7 +175,7 @@ Phases, each printing JSON lines:
 Then a line with the whole script's seconds, a line with every kernel's
 numbers and its launches by path (a train path's are those of its checks
 (a), (b) and (c); a tools path's those of its three tools; an export path's
-one exported call a bucket), and last
+one exported call a bucket; an examples path's the whole run), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, so the script exits non-zero and prints no result.
 It exits non-zero at once where no CUDA device is visible.
@@ -269,7 +289,7 @@ N_CLIENTS, N_PER_CLIENT = 6, 4
 # max-abs in depth units and relative L2: the same kernels and operations,
 # but cuDNN's default algorithms may sum in another order from run to run
 # (the flagship's transposed convolution; TOL_TOOL_PRED's reason).
-EXPORT_MAX_BATCH = {"flagship": 8, "da2": 2}
+EXPORT_MAX_BATCH = {"flagship": 2, "da2": 2}
 # Two epochs on generated data leave train (c)'s DA-V2-S map at its final
 # ReLU (all zeros on the card), where a comparison says nothing: the
 # export phase takes the serve phase's DA-V2-S weights instead (SEED's, the
@@ -1953,8 +1973,23 @@ def export_inputs(batch: int, native) -> np.ndarray:
                                                         dtype=np.uint8)
 
 
-# Run in a fresh interpreter: load the archive on the card with no model code,
-# predict once a bucket on ``export_inputs``, count each bucket's launches.
+def plain_op_counts(fn) -> dict:
+    """{operation: calls} of PLAIN_OPS in one call of ``fn`` under the
+    profiler's host activity alone (the operations are host events): the
+    plain versions' signature operations, and a model's own softmaxes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.key in PLAIN_OPS}
+
+
+# Run in a fresh interpreter: for each [archive, npz] pair read as a JSON
+# line from stdin (as the parent writes each archive), load the archive on
+# the card with no model code, predict once a bucket on ``export_inputs``
+# into the npz, count each bucket's launches and count PLAIN_OPS in bucket
+# 1's call; at the end of stdin, print every archive's result.
 EXPORT_CHILD = """
 import json, sys, time
 import numpy as np, torch
@@ -1963,24 +1998,64 @@ from mde_tpu_torch.train.export import load_exported
 # float32 with TF32 off, as the server over an archive sets it
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
-t0 = time.perf_counter()
-p = load_exported(sys.argv[1], "cuda")
-load_s = time.perf_counter() - t0
-outs, counts, first_s = {}, {}, {}
-for b in p.batch_sizes:
-    x = S.export_inputs(b, p.meta["native_size"])
-    S.reset_counts()
-    t1 = time.perf_counter()
-    outs[str(b)] = p.predict(x)
-    first_s[str(b)] = time.perf_counter() - t1
-    counts[str(b)] = S.read_counts()
-np.savez(sys.argv[2], **outs)
-print(json.dumps({"load_s": load_s, "first_predict_s": first_s, "counts": counts,
+archives = []
+for line in sys.stdin:
+    archive, npz = json.loads(line)
+    t0 = time.perf_counter()
+    p = load_exported(archive, "cuda")
+    load_s = time.perf_counter() - t0
+    outs, counts, first_s = {}, {}, {}
+    for b in p.batch_sizes:
+        x = S.export_inputs(b, p.meta["native_size"])
+        S.reset_counts()
+        t1 = time.perf_counter()
+        outs[str(b)] = p.predict(x)
+        first_s[str(b)] = time.perf_counter() - t1
+        counts[str(b)] = S.read_counts()
+    x1 = torch.from_numpy(S.export_inputs(1, p.meta["native_size"])).cuda()
+    np.savez(npz, **outs)
+    archives.append({"load_s": load_s, "first_predict_s": first_s, "counts": counts,
+                     "plain_ops": S.plain_op_counts(lambda: p.predict_tensor(x1))})
+    del p, x1
+    torch.cuda.empty_cache()
+print(json.dumps({"archives": archives,
                   "models_imported": sorted(m for m in sys.modules
                                             if m.startswith("mde_tpu_torch.models")),
                   "jax_imported": sorted(m for m in sys.modules
                                          if m.split(".")[0] in ("jax", "mde_tpu"))}))
 """
+
+
+def start_export_child(tmp: str):
+    """EXPORT_CHILD started, its output in ``tmp``; feed it with
+    ``feed_export_child`` and collect it with ``finish_export_child``."""
+    log = open(os.path.join(tmp, "export_child.out"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_CHILD],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdin=subprocess.PIPE, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    log.close()
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def feed_export_child(proc, archive: str, npz: str) -> None:
+    proc.stdin.write(json.dumps([archive, npz]) + "\n")
+    proc.stdin.flush()
+
+
+def finish_export_child(proc, tmp: str) -> tuple[list, float]:
+    """Each fed archive's result and the child's seconds from its start. The
+    child must succeed and import no model code and nothing of JAX."""
+    proc.stdin.close()
+    rc = proc.wait(timeout=900)
+    seconds = time.perf_counter() - proc.t0
+    out = open(os.path.join(tmp, "export_child.out")).read()
+    check(rc == 0, f"the loading process failed:\n{out[-3000:]}")
+    child = json.loads(out.strip().splitlines()[-1])
+    check(child["models_imported"] == [] and child["jax_imported"] == [],
+          f"the loader imported {child['models_imported'] + child['jax_imported']}")
+    return child["archives"], seconds
 
 
 def _compare(got: np.ndarray, want: np.ndarray) -> dict:
@@ -2054,15 +2129,15 @@ def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
 
     # a fresh interpreter loads the archive and predicts
     npz = os.path.join(tmp, f"{name}_exported.npz")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, archive, npz],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=600)
-    child_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the loading process failed:\n{proc.stderr[-3000:]}")
-    child = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(child["models_imported"] == [] and child["jax_imported"] == [],
-          f"the loader imported {child['models_imported'] + child['jax_imported']}")
+    proc = start_export_child(tmp)
+    try:
+        feed_export_child(proc, archive, npz)
+        (child,), child_s = finish_export_child(proc, tmp)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(not child["plain_ops"], f"the loading process ran {child['plain_ops']}")
     got = np.load(npz)
     per_bucket = {}
     for b in buckets:
@@ -2189,7 +2264,7 @@ def _swapped_predict(model, cfg, x, plain_k3: bool, plain_k4: bool) -> np.ndarra
                                align_corners=True).cpu().numpy()
 
 
-def _step_times(step, batch: np.ndarray, reps: int = 7) -> dict:
+def _step_times(step, batch: np.ndarray, reps: int = 5) -> dict:
     """Medians of the host time of copy in, step and copy out (the serving
     path's work, as ``_host_ms``) and of the step's CUDA-event time alone,
     with each rep's host time."""
@@ -2269,8 +2344,9 @@ def _zoo_serve(name: str, cfg, start_service) -> dict:
         for b in service.batcher.buckets:
             frames = np.zeros((b, h, w, 3), np.uint8)
             times = _step_times(service._step, frames)
-            times["top_kernels"] = _top_kernels(
-                lambda: service._step(torch.from_numpy(frames).cuda()))
+            if b == 1:  # one profile a model
+                times["top_kernels"] = _top_kernels(
+                    lambda: service._step(torch.from_numpy(frames).cuda()))
             for key, value in times.items():
                 out.setdefault(f"predict_{key}_by_bucket", {})[str(b)] = value
     finally:
@@ -2350,9 +2426,11 @@ def _zoo_train(name: str, cfg16, cfg32, model) -> dict:
                           f"{launches}")
             row["loss_rel"] = abs(row["kernels"]["loss"] - row["plain"]["loss"]) / abs(
                 row["plain"]["loss"])
-            row["grad_rel_l2"] = _grad_gaps(model, copies["plain"])
-            if "plain_again" in copies:
-                row["witness_grad_rel_l2"] = _grad_gaps(copies["plain_again"], copies["plain"])
+            if i == 0:  # the checks read step 0's gradients
+                row["grad_rel_l2"] = _grad_gaps(model, copies["plain"])
+                if "plain_again" in copies:
+                    row["witness_grad_rel_l2"] = _grad_gaps(copies["plain_again"],
+                                                            copies["plain"])
             rows.append(row)
             bf16 = dt == "bf16"
             want = {"preprocess_u8_train": 1, "si_loss_sums": 1, "si_loss_sums_backward": 1,
@@ -2453,18 +2531,20 @@ def phase_zoo(name: str, sets: tuple) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
         cfg = model_cfg(name, *sets, f"paths.results_dir={tmp}")
-        save_checkpoint(checkpoint_path(tmp, cfg.experiment.model_name),
-                        make_model(name, cfg, bias=0.5))
+        model = make_model(name, cfg, bias=0.5)
+        save_checkpoint(checkpoint_path(tmp, cfg.experiment.model_name), model)
         total = collections.Counter(_zoo_serve(name, cfg, lambda: build_service(
             cfg, "cuda", max_batch=2, window_ms=20.0, warmup=True)))
     torch.cuda.empty_cache()
     cfg16 = model_cfg(name, *sets)  # bf16 compute, the default
-    # the depth head comfortably positive, as phase_train's flagship: at the
-    # ReLU cliff the loss gradient is ~1/(pred + 1e-6), and with a bias of
-    # 0.5 K3's rounding moved MidasNet's float32 gradient 0.36 rel-L2 from
-    # the plain step's on an H100
+    # the depth head comfortably positive (bias 2 above SEED's), as
+    # phase_train's flagship: at the ReLU cliff the loss gradient is
+    # ~1/(pred + 1e-6), and with a bias of 0.5 K3's rounding moved
+    # MidasNet's float32 gradient 0.36 rel-L2 from the plain step's on an H100
+    with torch.no_grad():
+        final_depth_conv(model).bias.add_(1.5)
     total.update(_zoo_train(name, cfg16, model_cfg(name, *sets, "framework.compute_dtype=float32"),
-                            make_model(name, cfg16, bias=2.0).cuda()))
+                            model.cuda()))
     if name == ZOO_CLI:
         total.update(_zoo_cli(name, sets))
     torch.cuda.empty_cache()
@@ -2532,16 +2612,354 @@ def phase_zoo_loader(name: str) -> dict:
         return service
 
     total = collections.Counter(_zoo_serve(name, cfg, start))
-    del model, pred
+    del pred
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        final_depth_conv(model).bias.add_(1.5)  # 2 above SEED's, as the factory's
     total.update(_zoo_train(name, cfg, model_cfg(name, *sets, "framework.compute_dtype=float32"),
-                            loader_model(name, bias=2.0)[0]))
+                            model))
     torch.cuda.empty_cache()
     total = {k: total.get(k, 0) for k in read_counts()}
     emit({"phase": "zoo", "model": name, "loader": True, "launches": total,
           "seconds": time.perf_counter() - t0})
     check_path_launches(path, total, f"during {path}")
     return {path: total}
+
+
+# The export_zoo phase: the factory's seven (``ZOO``) through the export CLI
+# at buckets (1, 2) on the zoo phase's weights, and one loader DPT of each
+# trunk family through ``export_predict`` at bucket 1; one archive also for
+# the CPU platform, and DPT_Large's served by ``python -m ...tools.serve``.
+EXPORT_ZOO_LOADER = ("dpt_beit_base_384", "dpt_swin2_tiny_256", "dpt_swin_large_384",
+                     "dpt_levit_224", "dpt_next_vit_large_384")
+EXPORT_CUDA_CPU = "midas_small_lb_dgr"  # exported with --platforms cuda cpu
+EXPORT_SERVED = "dpt_large"  # served as a child process over HTTP
+EXPORT_BUCKET_LAUNCHES.update({
+    "midas_small": {"preprocess_u8": 1}, "midas_small_lb_dgr": {"preprocess_u8": 1},
+    "flagship_lb": EXPORT_BUCKET_LAUNCHES["flagship"], "unet": {"preprocess_u8": 1},
+    "midas": {"preprocess_u8": 1}, "dpt_large": {"preprocess_u8": 1, "flash_attention": 24},
+    "dpt_hybrid": {"preprocess_u8": 1, "flash_attention": 12},
+    **{name: {"preprocess_u8": 1} for name in EXPORT_ZOO_LOADER}})
+PATH_KERNELS.update({f"export_{name}": tuple(EXPORT_BUCKET_LAUNCHES[name])
+                     for name in [n for n, _ in ZOO] + list(EXPORT_ZOO_LOADER)})
+
+
+def _live_buckets(live, native, buckets) -> tuple[dict, dict]:
+    """The live predict step once a bucket on ``export_inputs``: its maps
+    (checked off the final ReLU) and its launches."""
+    want, counts = {}, {}
+    for b in buckets:
+        x = torch.from_numpy(export_inputs(b, native)).cuda()
+        reset_counts()
+        want[str(b)] = live(x).cpu().numpy()
+        counts[str(b)] = read_counts()
+        check((want[str(b)] > 0).mean() > 0.5 and float(want[str(b)].std()) > 0,
+              f"bucket {b}: the live depth map is clipped at the ReLU; nothing to compare")
+    return want, counts
+
+
+def _serve_exported_child(archive: str, tmp: str):
+    """``python -m mde_tpu_torch.tools.serve --exported archive`` on the card,
+    started (its output in ``tmp``); returns (process, url)."""
+    from mde_tpu_torch.parallel.launch import free_port
+
+    port = free_port()
+    log = open(os.path.join(tmp, "serve_exported.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mde_tpu_torch.tools.serve", "--device", "cuda", "--exported",
+         archive, "--port", str(port), "--window-ms", "20"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def _serve_exported_check(proc, url: str, tmp: str, images: np.ndarray, refs: np.ndarray) -> dict:
+    """Wait for the child server's /healthz, send ``images`` from concurrent
+    clients, hold each reply to ``refs`` (the live step's), then stop the
+    child with SIGTERM: it must exit 0."""
+    import signal
+
+    t0 = time.perf_counter()
+    while True:
+        check(proc.poll() is None, "the serve --exported process exited: "
+              + open(os.path.join(tmp, "serve_exported.log")).read()[-3000:])
+        try:
+            with urllib.request.urlopen(url + "/healthz", timeout=5) as resp:
+                if resp.status == 200:
+                    break
+        except OSError:
+            pass
+        check(time.perf_counter() - t0 < 300, "serve --exported did not answer in 300 s")
+        time.sleep(0.5)
+    ready_s = time.perf_counter() - t0
+    replies, serve_s = _post_concurrently(url, images)
+    worst, sizes = 0.0, []
+    for (status, body, headers), ref in zip(replies, refs):
+        check(status == 200, f"HTTP {status}: {body[:200]!r}")
+        depth = np.load(io.BytesIO(body))
+        err = float(np.abs(depth - ref).max())
+        check(depth.shape == ref.shape and err <= TOL_SERVED
+              and err <= TOL_SERVED_SPREAD * float(ref.max() - ref.min()),
+              f"serve --exported reply vs live predict step: max-abs {err}")
+        worst = max(worst, err)
+        sizes.append(int(headers["X-Batch-Size"]))
+    check(max(sizes) > 1, f"no request was coalesced: {sizes}")
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    check(rc == 0, f"serve --exported exited {rc} on SIGTERM")
+    return {"ready_s": ready_s, "serve_s": serve_s, "requests": len(replies),
+            "batch_sizes": sizes, "vs_live_max_abs": worst, "exit_code": rc}
+
+
+def phase_export_zoo() -> dict:
+    """The factory's seven through the export CLI at --max-batch 2 (buckets 1
+    and 2) on the zoo phase's weights (SEED's, depth bias +0.5), with
+    ``EXPORT_CUDA_CPU`` for the CPU platform too; the loader's five families
+    (``EXPORT_ZOO_LOADER``) through ``export_predict`` at bucket 1. Exporting
+    launches nothing. One fresh interpreter (EXPORT_CHILD), started first,
+    loads each archive as it is written, with no model code and no JAX (its
+    load and first-call seconds overlap the next exports); each bucket is
+    held to the live
+    step on the same weights (TOL_EXPORT, TOL_EXPORT_REL_L2) with its
+    launches (EXPORT_BUCKET_LAUNCHES, the live step's) and PLAIN_OPS (the
+    live step's: a model's own softmaxes only). The CPU programs run on the
+    CPU against the plain live step there. DPT_Large's archive is served by
+    ``python -m mde_tpu_torch.tools.serve --exported`` to concurrent clients
+    and stopped with SIGTERM. Paths ``export_<model>``: the child's launches,
+    one call a bucket."""
+    from mde_tpu_torch.tools import export_model
+    from mde_tpu_torch.tools.common import set_float32_precision
+    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+    from mde_tpu_torch.train.export import export_predict, load_exported, save_exported
+    from mde_tpu_torch.train.trainer import make_predict_step
+
+    phase_t0 = time.perf_counter()
+    set_float32_precision()  # the live steps in float32 with TF32 off, as the archives run
+    rows, pairs, server = {}, [], None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_zoo_") as tmp:
+        # the loading interpreter takes each archive as it is written
+        child_proc = start_export_child(tmp)
+        try:
+            for name, sets in ZOO:
+                results = os.path.join(tmp, name)
+                cfg = model_cfg(name, *sets, f"paths.results_dir={results}")
+                model = make_model(name, cfg, bias=0.5)
+                save_checkpoint(checkpoint_path(results, cfg.experiment.model_name), model)
+                archive = os.path.join(tmp, f"{name}.mdex")
+                argv = ["--device", "cuda", "--out", archive, "--max-batch", "2"]
+                argv += [a for x in sets + (f"paths.results_dir={results}",) for a in ("--set", x)]
+                if name == EXPORT_CUDA_CPU:
+                    argv += ["--platforms", "cuda", "cpu"]
+                reset_counts()
+                t0 = time.perf_counter()
+                meta = export_model.main(argv)
+                cli_s = time.perf_counter() - t0
+                check(not any(read_counts().values()), f"exporting {name} launched kernels")
+                native = tuple(int(v) for v in cfg.framework.native_size)
+                live = make_predict_step(model.cuda(), cfg)
+                want, counts = _live_buckets(live, native, meta["batch_sizes"])
+                x1 = torch.from_numpy(export_inputs(1, native)).cuda()
+                rows[name] = {"buckets": meta["batch_sizes"], "cli_s": cli_s,
+                              "export_s_by_bucket": meta["export_seconds"],
+                              "archive_mb": os.path.getsize(archive) / 1e6, "want": want,
+                              "live_counts": counts, "live_plain_ops": plain_op_counts(
+                                  lambda: live(x1))}
+                if name == EXPORT_CUDA_CPU:
+                    model.cpu()
+                    plain = make_predict_step(model, cfg, plain=True)
+                    cpu_predictor = load_exported(archive, "cpu")
+                    cpu = {}
+                    reset_counts()
+                    for b in meta["batch_sizes"]:
+                        u8 = torch.from_numpy(export_inputs(b, native))
+                        cpu[str(b)] = _compare(cpu_predictor.predict(u8.numpy()),
+                                               plain(u8).numpy())
+                        check(cpu[str(b)]["max_abs"] <= TOL_EXPORT
+                              and cpu[str(b)]["rel_l2"] <= TOL_EXPORT_REL_L2,
+                              f"{name} bucket {b}: the cpu program vs the plain step {cpu[str(b)]}")
+                    check(not any(read_counts().values()), "the cpu programs launched kernels")
+                    rows[name]["cpu_program_vs_plain_cpu"] = cpu
+                    del cpu_predictor, plain
+                if name == EXPORT_SERVED:
+                    # the child server loads while the other models export
+                    images = export_inputs(N_CLIENTS * N_PER_CLIENT, native)
+                    refs = np.stack([live(torch.from_numpy(img[None]).cuda()).cpu().numpy()[0]
+                                     for img in images])
+                    server = _serve_exported_child(archive, tmp)
+                pairs.append([archive, os.path.join(tmp, f"{name}.npz")])
+                feed_export_child(child_proc, *pairs[-1])
+                del model, live, x1
+                torch.cuda.empty_cache()
+            for name in EXPORT_ZOO_LOADER:
+                model, size, _ = loader_model(name, bias=0.5)
+                cfg = model_cfg(name, f"framework.input_size=[{size[0]},{size[1]}]",
+                                f"experiment.model_name={name}")
+                archive = os.path.join(tmp, f"{name}.mdex")
+                reset_counts()
+                t0 = time.perf_counter()
+                bundle = export_predict(model, cfg, [1], platforms=["cuda"])
+                save_exported(archive, bundle)
+                cli_s = time.perf_counter() - t0
+                check(not any(read_counts().values()), f"exporting {name} launched kernels")
+                native = tuple(int(v) for v in cfg.framework.native_size)
+                live = make_predict_step(model, cfg)
+                want, counts = _live_buckets(live, native, [1])
+                x1 = torch.from_numpy(export_inputs(1, native)).cuda()
+                rows[name] = {"buckets": [1], "input_size": list(size), "export_s": cli_s,
+                              "export_s_by_bucket": bundle["meta"]["export_seconds"],
+                              "archive_mb": os.path.getsize(archive) / 1e6, "want": want,
+                              "live_counts": counts,
+                              "live_plain_ops": plain_op_counts(lambda: live(x1))}
+                pairs.append([archive, os.path.join(tmp, f"{name}.npz")])
+                feed_export_child(child_proc, *pairs[-1])
+                del model, live, x1, bundle
+                torch.cuda.empty_cache()
+
+            children, child_s = finish_export_child(child_proc, tmp)
+            by_path = {}
+            for (name, row), child, (_, npz) in zip(rows.items(), children, pairs):
+                got = np.load(npz)
+                row["by_bucket"], total = {}, collections.Counter()
+                for b in row["buckets"]:
+                    key = str(b)
+                    cmp = _compare(got[key], row["want"][key])
+                    check(got[key].shape == row["want"][key].shape
+                          and np.isfinite(got[key]).all(), f"{name} bucket {b}: {got[key].shape}")
+                    check(cmp["max_abs"] <= TOL_EXPORT and cmp["rel_l2"] <= TOL_EXPORT_REL_L2,
+                          f"{name} bucket {b}: exported vs live predict step {cmp}")
+                    expected = {k: EXPORT_BUCKET_LAUNCHES[name].get(k, 0)
+                                for k in child["counts"][key]}
+                    check(child["counts"][key] == expected == row["live_counts"][key],
+                          f"{name} bucket {b}: exported launches {child['counts'][key]}, live "
+                          f"{row['live_counts'][key]}, want {expected}")
+                    total.update(child["counts"][key])
+                    row["by_bucket"][key] = {**cmp, "first_predict_s":
+                                             child["first_predict_s"][key]}
+                check(child["plain_ops"] == row["live_plain_ops"],
+                      f"{name}: the exported program ran {child['plain_ops']}, the live step "
+                      f"{row['live_plain_ops']}")
+                path = f"export_{name}"
+                by_path[path] = {k: total.get(k, 0) for k in read_counts()}
+                check_path_launches(path, by_path[path], f"during {path}")
+                row.update(child_load_s=child["load_s"], plain_ops=child["plain_ops"],
+                           launches={k: v for k, v in total.items() if v})
+                del row["want"], row["live_counts"]
+                emit({"phase": "export_zoo", "model": name, **row})
+            served = None
+            if server is not None:
+                served = _serve_exported_check(server[0], server[1], tmp, images, refs)
+                emit({"phase": "export_zoo", "model": EXPORT_SERVED, "serve_exported": served})
+        finally:
+            for proc in (child_proc, server[0] if server else None):
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    check(served is not None, f"{EXPORT_SERVED} was not served")
+    emit({"phase": "export_zoo", "child_s": child_s,
+          "seconds": time.perf_counter() - phase_t0})
+    return by_path
+
+
+# The examples phase: each port example (examples/torch_*.py) on its
+# generated data for one epoch on the card, with the path's launches; their
+# outputs, as each writes them (relative to its working directory).
+EXAMPLES = ("torch_simple_unet_baseline", "torch_midas_finetune", "torch_da2_finetune")
+PATH_KERNELS.update({
+    "examples_torch_simple_unet_baseline": ("preprocess_u8", "preprocess_u8_train"),
+    "examples_torch_midas_finetune": ZOO_CONV,
+    "examples_torch_da2_finetune": ZOO_CONV + ("flash_attention", "flash_attention_bf16",
+                                               "flash_attention_backward_bf16"),
+})
+# Run an example (argv[2]; argv[1] is the checkout) as ``python
+# examples/<name>.py --epochs 1 --device cuda`` would, then print the launch
+# counts of the whole run as the last line.
+EXAMPLE_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as S
+S.reset_counts()
+sys.argv = [sys.argv[2], "--epochs", "1", "--device", "cuda"]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print(json.dumps(S.read_counts()))
+"""
+
+
+def _example_outputs(name: str, cwd: str, out: str) -> dict:
+    """The example's printed losses and its outputs, checked."""
+    def npys(d):
+        files = sorted(os.listdir(d))
+        arrays = [np.load(os.path.join(d, f)) for f in files]
+        check(len(arrays) == 8 and all(a.shape == (426, 560) and np.isfinite(a).all()
+                                       for a in arrays),
+              f"{name}: predictions {[a.shape for a in arrays]}")
+        return len(arrays)
+
+    if name == "torch_simple_unet_baseline":
+        m = re.search(r"Epoch 1/1: train MSE (\S+), val MSE (\S+) ", out)
+        check(m is not None, f"{name}: no epoch line in\n{out[-2000:]}")
+        losses = [float(v) for v in m.groups()]
+        result = {"predictions": npys(os.path.join(cwd, "predictions_simple_unet"))}
+    else:
+        losses = [float(v) for v in re.findall(r"(?:Train|Val) Loss: (\S+)", out)]
+        check(len(losses) == 2, f"{name}: losses {losses} in\n{out[-2000:]}")
+        result = {}
+        if name == "torch_midas_finetune":
+            ckpt = os.path.join(cwd, "results", "best_model_midas_finetune.pth")
+            check(os.path.exists(ckpt), f"{name}: no checkpoint")
+        else:
+            result["predictions"] = npys(os.path.join(cwd, "results", "predictions_da2"))
+            with open(os.path.join(cwd, "results", "predictions_da2.csv")) as f:
+                lines = f.read().splitlines()
+            check(lines[0] == "id,Depths" and len(lines) == 9
+                  and all(r.startswith("test_") and r.count(",") == 1 for r in lines[1:]),
+                  f"{name}: predictions_da2.csv has {len(lines)} lines")
+            result["csv_rows"] = len(lines) - 1
+    check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+    return {"losses": losses, **result}
+
+
+def phase_examples() -> dict:
+    """The three port examples at once, each a child process on the card
+    with ``--epochs 1`` on the dataset it generates (32 train and 8 test
+    pairs at 426x560, under this phase's directory); each must exit 0 with
+    finite losses, its outputs (U-Net and DA-V2: eight 426x560 predictions;
+    DA-V2 a CSV of eight rows; MiDaS its best checkpoint), and its path's
+    kernels launched (``examples_<name>``)."""
+    phase_t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    by_path, procs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        try:
+            for name in EXAMPLES:
+                cwd = os.path.join(tmp, name)
+                os.makedirs(cwd)
+                log = open(os.path.join(cwd, "out.log"), "w")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_CHILD, repo,
+                     os.path.join(repo, "examples", f"{name}.py")], cwd=cwd, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    env={**os.environ, "TMPDIR": cwd, "WANDB_MODE": "disabled"})
+                log.close()
+            for name, proc in procs.items():
+                rc = proc.wait(timeout=900)
+                cwd = os.path.join(tmp, name)
+                out = open(os.path.join(cwd, "out.log")).read()
+                check(rc == 0, f"example {name} exited {rc}:\n{out[-3000:]}")
+                launches = json.loads(out.strip().splitlines()[-1])
+                path = f"examples_{name}"
+                by_path[path] = launches
+                emit({"phase": "examples", "example": name,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      **_example_outputs(name, cwd, out),
+                      "seconds": time.perf_counter() - phase_t0})
+                check_path_launches(path, launches, f"during {path}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    emit({"phase": "examples", "seconds": time.perf_counter() - phase_t0})
+    return by_path
 
 
 def phase_op_dispatch() -> dict:
@@ -3056,20 +3474,42 @@ def main() -> int:
             by_path.update(phase_zoo_loader(name))
         emit({"zoo_launches": by_path, "seconds": time.perf_counter() - T0})
         return 0
+    if sys.argv[1:] == ["--export-only"]:
+        # the zoo's export alone: the quick run for export's own changes
+        emit({"export_zoo_launches": phase_export_zoo(), "seconds": time.perf_counter() - T0})
+        return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
-          "--k4-backward-only, --k2-only, --parallel-only and --zoo-only")
+          "--k4-backward-only, --k2-only, --parallel-only, --zoo-only and --export-only")
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def lap(phase: str) -> None:  # the seconds since the last lap, by phase
+        now = time.perf_counter()
+        phase_s[phase] = phase_s.get(phase, 0.0) + now - mark[0]
+        mark[0] = now
+
     kernels = phase_kernels()
     phase_op_dispatch()
+    lap("kernels")
     by_path = {}
     for name in ("flagship", "da2"):
         by_path[f"{name}_serve"] = phase_serve(name)
         by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
+        lap(f"{name}_serve_train_tools_export")
     by_path["flagship_augment"] = phase_augment()
+    lap("augment")
     for name, sets in ZOO:
         by_path.update(phase_zoo(name, sets))
+    lap("zoo")
     for name in ZOO_LOADER:
         by_path.update(phase_zoo_loader(name))
+    lap("zoo_loader")
+    by_path.update(phase_export_zoo())
+    lap("export_zoo")
+    by_path.update(phase_examples())
+    lap("examples")
     by_path["parallel"] = phase_parallel()
+    lap("parallel")
+    emit({"seconds_by_phase": phase_s})
     rows = []
     for name, source, replaces in (
             ("window_attention", K1_SOURCE, K1_REPLACES),

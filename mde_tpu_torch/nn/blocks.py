@@ -10,6 +10,7 @@ gives every parameter and buffer a value from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Sequence
 
 import torch
@@ -47,17 +48,30 @@ def LayerNorm(c: int, eps: float = 1e-5) -> nn.LayerNorm:
 
 
 _CONSTANTS = {}
+# a trace's own constants, by the trace's fake-tensor mode: made once a
+# trace, so that each is one constant of the program
+_TRACE_CONSTANTS = weakref.WeakKeyDictionary()
 
 
 def device_constant(fn, *args, device) -> torch.Tensor:
     """``fn(*args)`` (an index, a mask: a numpy array or a tensor) as a tensor
     on ``device``, made once a device and kept. Made outside inference mode,
-    so that a train step's autograd may save it after a predict step made it."""
+    so that a train step's autograd may save it after a predict step made it.
+
+    Inside a trace (``torch.export``) it is made once a trace and kept with
+    the trace: the tracer lifts it into the program as a constant, and a
+    tensor kept past the trace would be the tracer's fake one, served to
+    later live calls."""
     key = (fn, args, str(device))
-    t = _CONSTANTS.get(key)
+    table = _CONSTANTS
+    if torch.compiler.is_compiling():
+        from torch._guards import detect_fake_mode
+
+        table = _TRACE_CONSTANTS.setdefault(detect_fake_mode(), {})
+    t = table.get(key)
     if t is None:
         with torch.inference_mode(False):
-            t = _CONSTANTS[key] = torch.as_tensor(fn(*args)).to(device)
+            t = table[key] = torch.as_tensor(fn(*args)).to(device)
     return t
 
 

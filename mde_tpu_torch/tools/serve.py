@@ -460,7 +460,7 @@ def build_service_from_exported(cfg, artifact_path: str, device="cuda", window_m
             "(tools/export_model.py does)")
     service.model_name = str(meta["model_name"])
     if warmup:
-        service.warmup()
+        predictor.warmup()
     return service
 
 

@@ -217,6 +217,13 @@ class ExportedPredictor:
         x = torch.from_numpy(np.ascontiguousarray(rgb_u8)).to(self.device)
         return self.predict_tensor(x).cpu().numpy()
 
+    def warmup(self) -> None:
+        """Run every bucket once on zeros, so that no request pays for a
+        program's deserialisation or its first call."""
+        h, w = self.meta["native_size"]
+        for b in self.batch_sizes:
+            self.predict(np.zeros((b, h, w, 3), np.uint8))
+
 
 def load_exported(path: str, device="cuda") -> ExportedPredictor:
     return ExportedPredictor(path, device)

@@ -8,7 +8,8 @@ and visualisation tools, the profiling helpers, the export module, its CLI,
 the conv+BN folding, the data-parallel modules and the rest of the model
 zoo (LocalBins, U-Net, MidasNet over ResNeXt, DPT over the timm ViTs,
 ResNetV2, BEiT, Swin, LeViT and Next-ViT, the MiDaS model loader and its
-cv2 host transforms) among them, and the
+cv2 host transforms) among them, and the port's three examples
+(``examples/torch_*.py``), with the
 kernels' ``torch.library`` ops registered; matplotlib,
 which imports PIL, only when a figure is drawn), builds DA-V2-S
 through the factory and runs it on a small image, then writes a synthetic
@@ -61,6 +62,9 @@ SCRIPT = textwrap.dedent('''
                                     "mde_tpu_torch.nn.next_vit",
                                     "mde_tpu_torch.models.model_loader",
                                     "mde_tpu_torch.data.midas_transforms"))
+    for name in ("examples.torch_simple_unet_baseline", "examples.torch_midas_finetune",
+                 "examples.torch_da2_finetune"):
+        importlib.import_module(name)  # the port's examples, not package modules
     assert "matplotlib" not in sys.modules
     import torch
     assert all(hasattr(torch.ops.mde_tpu, op)
