@@ -100,7 +100,7 @@ Phases, each printing JSON lines:
               peak memory from device_memory_stats, and at most two pageable
               host-to-card copies a step;
   8. export   for each model, inside train (c)'s directory: the export CLI
-              writes an archive (flagship buckets 1-2 on (c)'s checkpoint,
+              writes an archive (flagship buckets 1-8 on (c)'s checkpoint,
               DA-V2-S 1-2 on the serve phase's weights), with its seconds a
               bucket and its MB beside the state_dict's; a fresh interpreter
               loads it with no model code and predicts each bucket, held
@@ -150,8 +150,9 @@ Phases, each printing JSON lines:
               stopped with SIGTERM. Paths ``export_<model>``.
  11. examples the three port examples (examples/torch_*.py) at once, each a
               child process on the card with --epochs 1 on the data it
-              generates: exit 0, finite losses, their predictions, CSV or
-              checkpoint, and their launches (paths ``examples_<name>``).
+              generates, started beside phase 12 and collected after it:
+              exit 0, finite losses, their predictions, CSV or checkpoint,
+              their seconds and their launches (paths ``examples_<name>``).
  12. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
               card each over NCCL where there are two cards or more, else
               two ranks sharing card 0 over gloo (named on the line), each
@@ -289,7 +290,7 @@ N_CLIENTS, N_PER_CLIENT = 6, 4
 # max-abs in depth units and relative L2: the same kernels and operations,
 # but cuDNN's default algorithms may sum in another order from run to run
 # (the flagship's transposed convolution; TOL_TOOL_PRED's reason).
-EXPORT_MAX_BATCH = {"flagship": 2, "da2": 2}
+EXPORT_MAX_BATCH = {"flagship": 8, "da2": 2}
 # Two epochs on generated data leave train (c)'s DA-V2-S map at its final
 # ReLU (all zeros on the card), where a comparison says nothing: the
 # export phase takes the serve phase's DA-V2-S weights instead (SEED's, the
@@ -1974,15 +1975,9 @@ def export_inputs(batch: int, native) -> np.ndarray:
 
 
 def plain_op_counts(fn) -> dict:
-    """{operation: calls} of PLAIN_OPS in one call of ``fn`` under the
-    profiler's host activity alone (the operations are host events): the
+    """{operation: calls} of PLAIN_OPS in one profiled call of ``fn``: the
     plain versions' signature operations, and a model's own softmaxes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fn()
-    torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages() if e.key in PLAIN_OPS}
+    return {e.key: e.count for e in profiled(fn) if e.key in PLAIN_OPS}
 
 
 # Run in a fresh interpreter: for each [archive, npz] pair read as a JSON
@@ -2068,10 +2063,11 @@ def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
     """The ahead-of-time path on train (c)'s checkpoint (DA-V2-S: the serve
     phase's weights, EXPORT_SERVE_WEIGHTS): the export CLI writes the
     archive (buckets up to EXPORT_MAX_BATCH); a fresh interpreter
-    loads it with no model code and predicts once a bucket; each bucket's
+    loads it with no model code and predicts once a bucket (no plain
+    version's operation may run in its profiled bucket-1 call); each bucket's
     output and launches are held against the live predict step's on the same
     checkpoint; the exported predictor and the live step are timed in turns
-    and profiled at bucket 1 (no plain version's operation may run); then
+    and profiled at bucket 1; then
     ``build_service_from_exported`` serves it over HTTP to concurrent clients,
     its replies held against the live step. Returns the launches of one
     exported call a bucket (the path's row in the kernels line)."""
@@ -2176,9 +2172,6 @@ def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
     x1 = torch.from_numpy(export_inputs(1, native)).cuda()
     step_ms = cuda_ms(lambda: predictor.predict_tensor(x1), reps=8, warmup=2)
     profile = _profile_step(lambda: predictor.predict_tensor(x1), step_ms)
-    plain_ops = sorted({e.key for e in profiled(lambda: predictor.predict_tensor(x1))
-                        if e.key in PLAIN_OPS})
-    check(not plain_ops, f"the exported program ran plain versions' operations: {plain_ops}")
     live_ms = cuda_ms(lambda: live(x1), reps=8, warmup=2)
     out.update(host_ms_by_bucket=host_ms, bucket1_step_ms=step_ms, bucket1_profile=profile,
                live_bucket1_step_ms=live_ms,
@@ -2264,7 +2257,7 @@ def _swapped_predict(model, cfg, x, plain_k3: bool, plain_k4: bool) -> np.ndarra
                                align_corners=True).cpu().numpy()
 
 
-def _step_times(step, batch: np.ndarray, reps: int = 5) -> dict:
+def _step_times(step, batch: np.ndarray, reps: int = 7) -> dict:
     """Medians of the host time of copy in, step and copy out (the serving
     path's work, as ``_host_ms``) and of the step's CUDA-event time alone,
     with each rep's host time."""
@@ -2344,9 +2337,8 @@ def _zoo_serve(name: str, cfg, start_service) -> dict:
         for b in service.batcher.buckets:
             frames = np.zeros((b, h, w, 3), np.uint8)
             times = _step_times(service._step, frames)
-            if b == 1:  # one profile a model
-                times["top_kernels"] = _top_kernels(
-                    lambda: service._step(torch.from_numpy(frames).cuda()))
+            times["top_kernels"] = _top_kernels(
+                lambda: service._step(torch.from_numpy(frames).cuda()))
             for key, value in times.items():
                 out.setdefault(f"predict_{key}_by_bucket", {})[str(b)] = value
     finally:
@@ -2426,11 +2418,9 @@ def _zoo_train(name: str, cfg16, cfg32, model) -> dict:
                           f"{launches}")
             row["loss_rel"] = abs(row["kernels"]["loss"] - row["plain"]["loss"]) / abs(
                 row["plain"]["loss"])
-            if i == 0:  # the checks read step 0's gradients
-                row["grad_rel_l2"] = _grad_gaps(model, copies["plain"])
-                if "plain_again" in copies:
-                    row["witness_grad_rel_l2"] = _grad_gaps(copies["plain_again"],
-                                                            copies["plain"])
+            row["grad_rel_l2"] = _grad_gaps(model, copies["plain"])
+            if "plain_again" in copies:
+                row["witness_grad_rel_l2"] = _grad_gaps(copies["plain_again"], copies["plain"])
             rows.append(row)
             bf16 = dt == "bf16"
             want = {"preprocess_u8_train": 1, "si_loss_sums": 1, "si_loss_sums_backward": 1,
@@ -2872,15 +2862,16 @@ PATH_KERNELS.update({
 })
 # Run an example (argv[2]; argv[1] is the checkout) as ``python
 # examples/<name>.py --epochs 1 --device cuda`` would, then print the launch
-# counts of the whole run as the last line.
+# counts of the whole run and its seconds as the last line.
 EXAMPLE_CHILD = """
-import json, runpy, sys
+import json, runpy, sys, time
+t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as S
 S.reset_counts()
 sys.argv = [sys.argv[2], "--epochs", "1", "--device", "cuda"]
 runpy.run_path(sys.argv[0], run_name="__main__")
-print(json.dumps(S.read_counts()))
+print(json.dumps({"counts": S.read_counts(), "seconds": time.perf_counter() - t0}))
 """
 
 
@@ -2918,48 +2909,70 @@ def _example_outputs(name: str, cwd: str, out: str) -> dict:
     return {"losses": losses, **result}
 
 
-def phase_examples() -> dict:
-    """The three port examples at once, each a child process on the card
-    with ``--epochs 1`` on the dataset it generates (32 train and 8 test
-    pairs at 426x560, under this phase's directory); each must exit 0 with
-    finite losses, its outputs (U-Net and DA-V2: eight 426x560 predictions;
-    DA-V2 a CSV of eight rows; MiDaS its best checkpoint), and its path's
-    kernels launched (``examples_<name>``)."""
-    phase_t0 = time.perf_counter()
+def start_examples() -> dict:
+    """The three port examples started at once, each a child process on the
+    card with ``--epochs 1`` on the dataset it generates (32 train and 8 test
+    pairs at 426x560, under its own directory), wandb off (WANDB_MODE, as
+    README says for a machine without network). Collect them with
+    ``finish_examples``; the full script runs them beside the parallel
+    phase, whose checks hold no times."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    by_path, procs = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
-        try:
-            for name in EXAMPLES:
-                cwd = os.path.join(tmp, name)
-                os.makedirs(cwd)
-                log = open(os.path.join(cwd, "out.log"), "w")
-                procs[name] = subprocess.Popen(
-                    [sys.executable, "-c", EXAMPLE_CHILD, repo,
-                     os.path.join(repo, "examples", f"{name}.py")], cwd=cwd, stdout=log,
-                    stderr=subprocess.STDOUT,
-                    env={**os.environ, "TMPDIR": cwd, "WANDB_MODE": "disabled"})
-                log.close()
-            for name, proc in procs.items():
-                rc = proc.wait(timeout=900)
-                cwd = os.path.join(tmp, name)
-                out = open(os.path.join(cwd, "out.log")).read()
-                check(rc == 0, f"example {name} exited {rc}:\n{out[-3000:]}")
-                launches = json.loads(out.strip().splitlines()[-1])
-                path = f"examples_{name}"
-                by_path[path] = launches
-                emit({"phase": "examples", "example": name,
-                      "launches": {k: v for k, v in launches.items() if v},
-                      **_example_outputs(name, cwd, out),
-                      "seconds": time.perf_counter() - phase_t0})
-                check_path_launches(path, launches, f"during {path}")
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-    emit({"phase": "examples", "seconds": time.perf_counter() - phase_t0})
+    run = {"tmp": tempfile.TemporaryDirectory(prefix="chip_smoke_examples_"), "procs": {},
+           "t0": time.perf_counter()}
+    try:
+        for name in EXAMPLES:
+            cwd = os.path.join(run["tmp"].name, name)
+            os.makedirs(cwd)
+            log = open(os.path.join(cwd, "out.log"), "w")
+            run["procs"][name] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_CHILD, repo,
+                 os.path.join(repo, "examples", f"{name}.py")], cwd=cwd, stdout=log,
+                stderr=subprocess.STDOUT,
+                env={**os.environ, "TMPDIR": cwd, "WANDB_MODE": "disabled"})
+            log.close()
+    except BaseException:
+        stop_examples(run)
+        raise
+    return run
+
+
+def stop_examples(run: dict) -> None:
+    """Kill what is left of ``run``'s children and remove their directory."""
+    for proc in run["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    run["tmp"].cleanup()
+
+
+def finish_examples(run: dict) -> dict:
+    """Wait for ``start_examples``' children: each must exit 0 with finite
+    losses, its outputs (U-Net and DA-V2: eight 426x560 predictions; DA-V2 a
+    CSV of eight rows; MiDaS its best checkpoint), and its path's kernels
+    launched (``examples_<name>``)."""
+    by_path = {}
+    try:
+        for name, proc in run["procs"].items():
+            rc = proc.wait(timeout=900)
+            cwd = os.path.join(run["tmp"].name, name)
+            out = open(os.path.join(cwd, "out.log")).read()
+            check(rc == 0, f"example {name} exited {rc}:\n{out[-3000:]}")
+            last = json.loads(out.strip().splitlines()[-1])
+            path = f"examples_{name}"
+            by_path[path] = last["counts"]
+            emit({"phase": "examples", "example": name,
+                  "launches": {k: v for k, v in last["counts"].items() if v},
+                  **_example_outputs(name, cwd, out), "seconds": last["seconds"]})
+            check_path_launches(path, last["counts"], f"during {path}")
+    finally:
+        stop_examples(run)
+    emit({"phase": "examples", "seconds": time.perf_counter() - run["t0"]})
     return by_path
+
+
+def phase_examples() -> dict:
+    """The examples alone (``start_examples``, then ``finish_examples``)."""
+    return finish_examples(start_examples())
 
 
 def phase_op_dispatch() -> dict:
@@ -3505,10 +3518,15 @@ def main() -> int:
     lap("zoo_loader")
     by_path.update(phase_export_zoo())
     lap("export_zoo")
-    by_path.update(phase_examples())
-    lap("examples")
-    by_path["parallel"] = phase_parallel()
+    examples = start_examples()  # beside the parallel phase, which times nothing it checks
+    try:
+        by_path["parallel"] = phase_parallel()
+    except BaseException:
+        stop_examples(examples)
+        raise
     lap("parallel")
+    by_path.update(finish_examples(examples))
+    lap("examples")
     emit({"seconds_by_phase": phase_s})
     rows = []
     for name, source, replaces in (

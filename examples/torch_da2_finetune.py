@@ -40,7 +40,8 @@ from mde_tpu_torch.models.depth_anything import DepthAnythingV2
 from mde_tpu_torch.models.factory import build_module
 from mde_tpu_torch.parallel import distributed, launch
 from mde_tpu_torch.parallel.mesh import data_parallel, data_world
-from mde_tpu_torch.tools.common import build_loaders, resolve_paths, tool_device
+from mde_tpu_torch.tools.common import (build_loaders, resolve_paths, set_float32_precision,
+                                        tool_device)
 from mde_tpu_torch.tools.create_prediction_csv import process_depth_maps
 from mde_tpu_torch.train.checkpoint import load_checkpoint
 from mde_tpu_torch.train.logging import ExperimentLogger
@@ -64,6 +65,7 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
     distributed.initialize_from_env(args.device)  # a rank this script started joins here
+    set_float32_precision()  # TF32 off, as the training CLI
     device = tool_device(args.device)
 
     data_dir = args.data_dir
@@ -104,7 +106,8 @@ def main(argv=None):
     model = model.to(device)
 
     optimizer = make_optimizer(model, cfg)
-    logger = ExperimentLogger(name="da2_finetune", disabled=False, log_dir=args.results_dir)
+    logger = ExperimentLogger(name="da2_finetune", disabled=not distributed.is_primary(),
+                              log_dir=args.results_dir)
     trained = data_parallel(model, device) if world > 1 else model
     history = fit(trained, cfg, optimizer, loaders["train"], loaders["val"], args.results_dir,
                   logger=logger, seed=int(cfg.framework.seed))

@@ -35,7 +35,7 @@ from mde_tpu_torch.data.loader import HostLoader
 from mde_tpu_torch.data.transforms import preprocess_eval, preprocess_train
 from mde_tpu_torch.models.factory import build_module
 from mde_tpu_torch.models.simple_unet import SimpleUNet
-from mde_tpu_torch.tools.common import tool_device
+from mde_tpu_torch.tools.common import set_float32_precision, tool_device
 from mde_tpu_torch.train.trainer import (generate_test_predictions, make_optimizer,
                                          step_generator)
 
@@ -55,6 +55,7 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     args = p.parse_args(argv)
+    set_float32_precision()  # TF32 off, as the training CLI
     device = tool_device(args.device)
 
     data_dir = args.data_dir

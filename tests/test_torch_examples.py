@@ -103,6 +103,25 @@ def test_da2_finetune_writes_predictions_and_csv(tmp_path, monkeypatch):
     assert got == (tmp_path / "jax.csv").read_bytes()
 
 
+def test_midas_finetune_data_parallel(tmp_path, monkeypatch, capsys):
+    """W = 2 forced in this process: the example starts two gloo ranks of
+    itself (``python -m examples.torch_midas_finetune``, at its own input
+    size), which train one epoch under DistributedDataParallel; only rank 0
+    logs (its JSONL file where wandb is absent) and the best checkpoint is
+    written once."""
+    monkeypatch.setattr(torch_midas_finetune, "data_world", lambda cfg, device: 2)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.chdir(tmp_path)
+    from mde_tpu_torch.data import synthetic
+
+    synthetic.generate(str(tmp_path / "data"), n_train=4, n_test=2, size=(60, 80))
+    assert torch_midas_finetune.main(["--device", "cpu", "--batch-size", "2",
+                                      "--data-dir", str(tmp_path / "data")]) is None
+    assert "Starting 2 data-parallel processes" in capsys.readouterr().out
+    results = sorted(os.listdir(tmp_path / "results"))
+    assert results == ["best_model_midas_finetune.pth", "midas_finetune.log.jsonl"], results
+
+
 @pytest.mark.parametrize("example", EXAMPLES, ids=lambda m: m.__name__.split(".")[-1])
 def test_cuda_refused_without_a_card(example, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
