@@ -5,6 +5,7 @@ paths on one CUDA card.
     python3 chip_smoke.py --k4-backward-only   # K4's backward checks and times alone
     python3 chip_smoke.py --k2-only            # K2's checks and times alone
     python3 chip_smoke.py --parallel-only      # the data-parallel phase alone
+    python3 chip_smoke.py --tp-only            # the tensor_parallel phase alone
     python3 chip_smoke.py --zoo-only           # the zoo phase alone
     python3 chip_smoke.py --export-only        # the zoo's export phase alone
 
@@ -173,6 +174,23 @@ Phases, each printing JSON lines:
               checkpoint, a prediction an image); then the training CLI at
               W, which starts its ranks.
               Path ``parallel``: the ranks' train steps, summed over ranks.
+ 13. tensor_parallel the model axis (mde_tpu_torch/parallel/tensor.py) at
+              T = 2, in a thread beside phase 12: ranks sharing card 0 over
+              gloo at (data, model) = (1, 2) and (2, 2), or one card a rank
+              over NCCL ((1, 2) on two cards, and (2, 2) on four), each a
+              process of parallel.launch on phase 12's step jobs at
+              ``model_axis`` 2 (TP_WORLD_JOBS), held to the same
+              one-process steps and world-of-one witnesses at the same
+              bounds: losses, the last step's gradient gathered to the full
+              grammar, the state after, each rank's launches a step and
+              step ms, and its parameter bytes against the layout's share;
+              the (1, 2) world's float64 update; its float32 run's sharded
+              checkpoint restored in one process, the same values; the
+              training CLI at framework.mesh.model=2 for one epoch, started
+              as a user starts it, its checkpoint the full grammar, loaded
+              into one process whose predictions equal the ranks'. K1 and
+              K4 run on a rank's heads (the kernels phase times them there:
+              TP_CASES). Paths ``tp_flagship``, ``tp_da2``.
 Then a line with the whole script's seconds, a line with every kernel's
 numbers and its launches by path (a train path's are those of its checks
 (a), (b) and (c); a tools path's those of its three tools; an export path's
@@ -220,10 +238,17 @@ K4_REPLACES = "mde_tpu/ops/flash_attention.py:58"
 K4_CASES = (("da2s_serve", (1, 1345, 6, 64)), ("da2s_train", (4, 1345, 6, 64)),
             ("da2l", (1, 1345, 16, 64)), ("flagship_b1", (1, 321, 6, 64)),
             ("flagship_b8", (8, 321, 6, 64)), ("ragged", (2, 130, 6, 64)),
-            ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)))
+            ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)),
+            ("da2s_train_tp", (4, 1345, 3, 64)), ("flagship_tp", (4, 321, 3, 64)))
 # The cases timed with the profiler too: DA-V2-S's training shape (the row's
-# times), and DPT_Large's and DPT_Hybrid's at 448x576 (28x36 + 1 tokens).
-K4_PROFILED = ("da2s_train", "dptl_train", "dpth_train")
+# times), DPT_Large's and DPT_Hybrid's at 448x576 (28x36 + 1 tokens), and a
+# model rank's share of the heads at T = 2 (``TP_CASES``).
+K4_PROFILED = ("da2s_train", "dptl_train", "dpth_train", "da2s_train_tp", "flagship_tp")
+# The shapes a model rank gives a kernel at T = 2 (the tensor_parallel
+# phase): its three of DINOv2-S's six heads (DA-V2-S's train step, the
+# flagship's frozen branch), and its four of the cross-attention's eight
+# (K1: (B, 20, 256, 16), head_dim 4). A kernel row's ``tp`` entry.
+TP_CASES = ("da2s_train_tp", "flagship_tp", "tp_train")
 # K4's backward cases: DA-V2-S and DA-V2-B training, DA-V2-L, the flagship's
 # branch, ragged, a grid smaller than one wave, and N one below, at and one
 # above the 64 and 128 rows a block can take.
@@ -232,7 +257,8 @@ K4_BWD_CASES = (("da2s_train", (4, 1345, 6, 64)), ("da2b_train", (4, 1345, 12, 6
                 ("ragged", (2, 130, 6, 64)), ("one_block", (1, 65, 1, 64)),
                 ("n63", (1, 63, 2, 64)), ("n64", (1, 64, 2, 64)), ("n127", (1, 127, 2, 64)),
                 ("n128", (1, 128, 2, 64)), ("n129", (1, 129, 2, 64)),
-                ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)))
+                ("dptl_train", (4, 1009, 16, 64)), ("dpth_train", (4, 1009, 12, 64)),
+                ("da2s_train_tp", (4, 1345, 3, 64)))
 # rel-L2 of dq/dk/dv, kernel vs autograd through the plain version, float32
 # (K4's backward, and K1's)
 TOL_K4_GRAD = 1e-5
@@ -519,6 +545,8 @@ def phase_kernels() -> dict:
         ("flagship", (2, 20, 256, 32), 8, _window_key_validity(56, 72, 64, 80, 16)),
         ("bucket1", (1, 20, 256, 32), 8, _window_key_validity(56, 72, 64, 80, 16)),
         ("aligned", (1, 4, 64, 32), 4, _window_key_validity(16, 16, 16, 16, 8)),
+        # a model rank's share at T = 2: 4 of the 8 heads, train batch 4
+        ("tp_train", (4, 20, 256, 16), 4, _window_key_validity(56, 72, 64, 80, 16)),
     ]
     for label, shape, heads, mask in k1_cases:
         q, k, v = (torch.randn(shape, generator=g).to(dev) for _ in range(3))
@@ -538,26 +566,34 @@ def phase_kernels() -> dict:
             results["window_attention"]["bucket1"] = {
                 key: row[key] for key in ("profiler_ms", "device_ms", "ms", "bound_ms",
                                           "bound_share")}
+        if label == "tp_train":
+            results["window_attention"]["tp"] = _dpt_cases({label: row}, TP_CASES)
         results.setdefault("window_attention", row)
         results["window_attention"]["max_abs_err"] = max(err, results["window_attention"]
                                                          ["max_abs_err"])
 
-    # K1 bf16 at the train step's flagship shape, against the plain version
-    # fed the same bf16 inputs (it computes in float32 and rounds once).
-    shape, heads, mask = (4, 20, 256, 32), 8, _window_key_validity(56, 72, 64, 80, 16)
-    q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16) for _ in range(3))
-    m = torch.from_numpy(mask).to(dev)
-    got = K.window_attention(q, k, v, heads, m)
-    want = K.window_attention_plain(q, k, v, heads, m)
-    torch.cuda.synchronize()
-    check(got.dtype == torch.bfloat16, f"window_attention bf16: output {got.dtype}")
-    err = (got.float() - want.float()).abs().max().item()
-    row = dict(max_abs_err=err, **_k1_timings(K, q, k, v, heads, m))
-    emit({"phase": "kernels", "kernel": "window_attention_bf16", "case": "flagship_train",
-          "shape": list(shape), "heads": heads, **row})
-    check(bool(torch.isfinite(got).all()), "window_attention bf16: non-finite output")
-    check(err <= TOL_K1_BF16, f"window_attention bf16: max-abs {err} > {TOL_K1_BF16}")
-    results["window_attention_bf16"] = row
+    # K1 bf16 at the train step's flagship shape and a model rank's share of
+    # it at T = 2, against the plain version fed the same bf16 inputs (it
+    # computes in float32 and rounds once).
+    bf16_rows = {}
+    for label, shape, heads in (("flagship_train", (4, 20, 256, 32), 8),
+                                ("tp_train", (4, 20, 256, 16), 4)):
+        mask = _window_key_validity(56, 72, 64, 80, 16)
+        q, k, v = (torch.randn(shape, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+        m = torch.from_numpy(mask).to(dev)
+        got = K.window_attention(q, k, v, heads, m)
+        want = K.window_attention_plain(q, k, v, heads, m)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, f"window_attention bf16: output {got.dtype}")
+        err = (got.float() - want.float()).abs().max().item()
+        row = bf16_rows[label] = dict(max_abs_err=err, **_k1_timings(K, q, k, v, heads, m))
+        emit({"phase": "kernels", "kernel": "window_attention_bf16", "case": label,
+              "shape": list(shape), "heads": heads, **row})
+        check(bool(torch.isfinite(got).all()), f"window_attention bf16 {label}: non-finite output")
+        check(err <= TOL_K1_BF16, f"window_attention bf16 {label}: max-abs {err} > {TOL_K1_BF16}")
+    results["window_attention_bf16"] = dict(
+        bf16_rows["flagship_train"], tp=_dpt_cases(bf16_rows, TP_CASES),
+        max_abs_err=max(r["max_abs_err"] for r in bf16_rows.values()))
     k1 = _check_k1_backward(K, g, _window_key_validity)
     for name, err in k1.pop("forward_max_abs_err").items():
         results[name]["max_abs_err"] = max(err, results[name]["max_abs_err"])
@@ -595,7 +631,8 @@ def _check_k1_backward(K, g, validity) -> dict:
              ("aligned_hd8", (1, 4, 64, 32), 4, validity(16, 16, 16, 16, 8)),
              ("empty_windows", (1, 4, 64, 32), 8, validity(8, 16, 16, 16, 8)),
              ("wide_hd16", (1, 4, 64, 64), 4, validity(12, 16, 16, 16, 8)),
-             ("window10", (1, 4, 100, 32), 8, validity(14, 18, 20, 20, 10)))
+             ("window10", (1, 4, 100, 32), 8, validity(14, 18, 20, 20, 10)),
+             ("tp_train", (4, 20, 256, 16), 4, validity(56, 72, 64, 80, 16)))
     out = {"forward_max_abs_err": {}}
     fwd_names = {torch.float32: ("window_attention", TOL_KERNEL),
                  torch.bfloat16: ("window_attention_bf16", TOL_K1_BF16)}
@@ -649,7 +686,7 @@ def _check_k1_backward(K, g, validity) -> dict:
                        forward_max_abs_err=fwd_err, forward_same_bits=fwd_same_bits,
                        empty_windows=int(empty.sum()), empty_m_exact=empty_m_exact,
                        same_bits=same_bits, invalid_key_grad_max=masked_max)
-            if label == "flagship_train":
+            if label in ("flagship_train", "tp_train"):
                 b, n, t, c = shape
                 hd = c // heads
                 lib_leaves = [x.detach().clone().reshape(b * n, t, heads, hd).transpose(1, 2)
@@ -699,7 +736,8 @@ def _check_k1_backward(K, g, validity) -> dict:
             check(masked_max == 0.0, f"{name} {label}: an invalid key got dk/dv {masked_max}")
         out[name] = dict(rows["flagship_train"],
                          max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-                         max_rel_l2=max(r["max_rel_l2"] for r in rows.values()))
+                         max_rel_l2=max(r["max_rel_l2"] for r in rows.values()),
+                         tp=_dpt_cases(rows, TP_CASES))
     return out
 
 
@@ -912,7 +950,7 @@ def _check_k4(K, g) -> dict:
             check(err <= tol, f"{name} {label}: max-abs {err} > {tol}")
         out[name] = dict(cases["da2s_train"],
                          max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-                         dpt=_dpt_cases(cases))
+                         dpt=_dpt_cases(cases), tp=_dpt_cases(cases, TP_CASES))
     out.update(_check_k4_backward_all(K, g))
     return out
 
@@ -929,16 +967,18 @@ def _check_k4_backward_all(K, g) -> dict:
         out[name] = dict(cases["da2s_train"],
                          max_abs_err=max(c["max_abs_err"] for c in cases.values()),
                          max_rel_l2=max(c["max_rel_l2"] for c in cases.values()),
-                         dpt=_dpt_cases(cases))
+                         dpt=_dpt_cases(cases), tp=_dpt_cases(cases, TP_CASES))
     return out
 
 
-def _dpt_cases(cases: dict) -> dict:
-    """The DPT shapes' numbers of a K4 row (its main numbers are DA-V2-S's)."""
+def _dpt_cases(cases: dict, labels=("dptl_train", "dpth_train")) -> dict:
+    """The numbers of a kernel row's other shapes (its main numbers are
+    DA-V2-S's, or the flagship's for K1): DPT's, or with ``labels`` the
+    tensor-parallel ones (``TP_CASES``) present in ``cases``."""
     keys = ("max_abs_err", "max_rel_l2", "ms", "device_ms", "profiler_ms", "plain_device_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms")
     return {label: {k: cases[label][k] for k in keys if k in cases[label]}
-            for label in ("dptl_train", "dpth_train")}
+            for label in labels if label in cases}
 
 
 def _check_k4_backward(K, g, label: str, shape, dtype, name: str, tol: float) -> dict:
@@ -3045,6 +3085,8 @@ def phase_op_dispatch() -> dict:
 # 0.0023) stands in below it. A gradient of zeros, or of the wrong rows,
 # reads about 1 or more.
 PARALLEL_RUNS = (("flagship", "float32"), ("flagship", "bfloat16"), ("da2", "bfloat16"))
+# Each model's ``--set``s in the ranks' jobs and the CLIs of both phases.
+PARALLEL_SETS = {"flagship": (), "da2": DA2_SETS}
 PARALLEL_STEPS = 3
 PARALLEL_BF16_GRAD, PARALLEL_BF16_GRAD_FLOOR = 1.5, 0.01
 # Each rank's launches a step: K3's train form, K2 forward and backward, K4
@@ -3087,6 +3129,34 @@ TOL_BN_RTOL, TOL_BN_ATOL = 2 ** -8, 1e-5
 TOL_BN_SUMS, TOL_BN_STATS = 1e-5, 1e-5
 
 
+class Background:
+    """``fn()`` run in a thread from construction on: ``wait()`` joins it,
+    ``result()`` joins it and returns its value or raises what it raised.
+    The parallel phases wait on ranks (subprocesses) this way while the
+    main thread computes the one-process steps."""
+
+    def __init__(self, fn):
+        self._out = {}
+
+        def work():
+            try:
+                self._out["value"] = fn()
+            except BaseException as err:  # re-raised by result()
+                self._out["error"] = err
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        self._thread.join()
+
+    def result(self):
+        self.wait()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
 def _parallel_world() -> tuple[int, str, str]:
     """(W, --device, backend): one card a rank over NCCL with two cards or
     more (W divides the global batch), else two ranks sharing card 0 over
@@ -3097,7 +3167,7 @@ def _parallel_world() -> tuple[int, str, str]:
     return 2, "cuda:0", "gloo"
 
 
-def phase_parallel() -> dict:
+def phase_parallel(data_parallel: bool = True, tensor_parallel: bool = True) -> dict:
     """Data-parallel training (``mde_tpu_torch/parallel``) on W ranks, each a
     process started by ``parallel.launch``: the PARALLEL_RUNS against the
     one-process step and against a world of one over NCCL through the same
@@ -3106,11 +3176,12 @@ def phase_parallel() -> dict:
     ``fit`` with ``generate_test_predictions`` (histories equal on every
     rank, one checkpoint, a prediction an image) and the evaluation steps
     (the same metrics on every rank), then the training CLI at
-    W, which starts its ranks itself. Returns the launches of the W-rank runs
-    summed over ranks."""
+    W, which starts its ranks itself. Beside it, in a thread, the
+    tensor_parallel phase's worlds (``start_tensor_parallel``), held to the
+    same one-process steps and witnesses. Returns the launches of the ranks'
+    runs summed over ranks, by path ("parallel", "tp_flagship", "tp_da2")."""
     from mde_tpu_torch.data import synthetic
     from mde_tpu_torch.parallel import launch
-    from mde_tpu_torch.tools import main as train_cli
     from mde_tpu_torch.tools.common import set_float32_precision
 
     world, device, backend = _parallel_world()
@@ -3120,8 +3191,10 @@ def phase_parallel() -> dict:
            "note": ("two ranks share one card over gloo (NCCL refuses two ranks on one card): "
                     "a correctness run; its step times are not a scaling figure"
                     if backend == "gloo" else "one card a rank over NCCL")}
-    emit(out)
+    if data_parallel:
+        emit(out)
     total = dict.fromkeys(_counters(), 0)
+    by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
         rng = np.random.default_rng(SEED + 7)
         batches = []
@@ -3135,7 +3208,7 @@ def phase_parallel() -> dict:
         for name, dtype in PARALLEL_RUNS:
             label = f"{name}_{dtype}"
             extra = (f"framework.compute_dtype={dtype}", "framework.learning_rate=0")
-            sets = list((DA2_SETS if name == "da2" else ()) + extra)
+            sets = list(PARALLEL_SETS[name] + extra)
             cfg = model_cfg(name, *extra)
             model = make_model(name, cfg, bias=0.5 if name == "da2" else 2.0)
             torch.save(model, os.path.join(tmp, f"{name}.pt"))
@@ -3145,108 +3218,352 @@ def phase_parallel() -> dict:
                          "generators": gens, "grads": True})
         data = os.path.join(tmp, "data")
         synthetic.generate(data, n_train=16, n_test=5, size=TRAIN_SHAPE[1:], seed=SEED)
-        fit_sets = [f"paths.data_dir={data}", f"paths.results_dir={tmp}/fit/results",
+        fit_sets = [*PARALLEL_SETS["flagship"], f"paths.data_dir={data}",
+                    f"paths.results_dir={tmp}/fit/results",
                     f"paths.predictions_dir={tmp}/fit/predictions", "training.n_epoch=2",
                     "framework.learning_rate=0", "experiment.wandb_disable=true"]
+        float64_job = {"name": "flagship_float64", "mode": "steps",
+                       "model": os.path.join(tmp, "flagship.pt"),
+                       "sets": [*PARALLEL_SETS["flagship"], "framework.compute_dtype=float32"],
+                       "batches": os.path.join(tmp, "batches.pt"),
+                       "generators": gens[:PARALLEL_F64_STEPS], "float64": True, "plain": True}
+        step_jobs = {job["name"]: job for job in jobs + [float64_job]}
         jobs.append({"name": "fit", "mode": "fit", "model": os.path.join(tmp, "flagship.pt"),
                      "sets": fit_sets})
-        jobs.append({"name": "flagship_float64", "mode": "steps",
-                     "model": os.path.join(tmp, "flagship.pt"),
-                     "sets": ["framework.compute_dtype=float32"],
-                     "batches": os.path.join(tmp, "batches.pt"),
-                     "generators": gens[:PARALLEL_F64_STEPS], "float64": True, "plain": True})
+        jobs.append(float64_job)
         bn_input = _bn_input()
         torch.save(bn_input, os.path.join(tmp, "bn_bf16.pt"))
         jobs.append({"name": "bn_bf16", "mode": "batchnorm",
                      "input": os.path.join(tmp, "bn_bf16.pt")})
-        reset_counts()
+        def ranks():
+            got, ranks_s = None, None
+            if data_parallel:
+                t0 = time.perf_counter()
+                got = launch.run({"world": world, "device": device, "out": tmp, "threads": 4,
+                                  "jobs": jobs}, os.path.join(tmp, "spec.json"), timeout=900,
+                                 backend=backend)
+                ranks_s = time.perf_counter() - t0
+            # a world of one over NCCL through the same DDP code, the BN layers
+            # in the cross-process form: each run's noise witness
+            world1 = launch.run({"world": 1, "device": "cuda", "out": tmp, "jobs": [
+                {**job, "name": f"world1_{job['name']}"} for job in jobs[:len(runs)]]},
+                os.path.join(tmp, "spec1.json"), timeout=300, backend="nccl")
+            return got, ranks_s, world1
+
+        tasks = [start_tensor_parallel(tmp, step_jobs, data)] if tensor_parallel else []
+        try:  # every thread is joined on every way out of the directory
+            reset_counts()
+            tasks.append(Background(ranks))
+            refs = _one_process_refs(runs, batches)  # in this process, beside the ranks
+            refs_launches = read_counts()
+            got, ranks_s, world1 = tasks[-1].result()
+            check(read_counts() == refs_launches, "the main process launched a kernel while "
+                  "the ranks ran, other than the one-process steps'")
+            if data_parallel:
+                _check_data_parallel_runs(out, runs, refs, got, world1, bn_input, total)
+                _check_data_parallel_end(out, refs, got, world1, tmp, data, ranks_s)
+                check_path_launches("parallel", total, "by the ranks' train steps")
+                by_path["parallel"] = total
+        finally:
+            for task in tasks:
+                task.wait()
+        if tensor_parallel:
+            by_path.update(finish_tensor_parallel(tasks[0], runs, refs, world1, batches, tmp))
+    return by_path
+
+
+def _check_data_parallel_runs(out, runs, refs, got, world1, bn_input, total) -> None:
+    """Phase 12's runs against the one-process steps (launches summed into
+    ``total``), its float64 update and its BatchNorm layer."""
+    world, backend = out["world"], out["backend"]
+    check(all(r["backend"] == backend and r["world"] == world
+              for job in got.values() for r in job),
+          f"ranks ran over {[(r['backend'], r['world']) for r in got['fit']]}")
+    for label, (name, dtype, _, _) in runs.items():
+        _check_parallel_run(label, name, dtype, refs[label], got[label],
+                            world1[f"world1_{label}"][0])
+        for r in got[label]:
+            for step in r["launches"]:
+                for k, v in step.items():
+                    total[k] += v
+    _check_parallel_float64(runs["flagship_float32"][3], refs["flagship_float64"],
+                            got["flagship_float64"])
+    _check_parallel_bn(bn_input, got["bn_bf16"])
+
+
+def _check_data_parallel_end(out, refs, got, world1, tmp, data, ranks_s) -> None:
+    """Phase 12's fit on W ranks, its world of one, then the training CLI at
+    W, which starts its own ranks."""
+    from mde_tpu_torch.tools import main as train_cli
+
+    world, device, backend = out["world"], out["device"], out["backend"]
+    fit = got["fit"]
+    hist = [r["history"] for r in fit]
+    ckpts = sorted(f for f in os.listdir(f"{tmp}/fit/results") if f.endswith(".pth"))
+    preds = sorted(os.listdir(f"{tmp}/fit/predictions"))
+    emit({**out, "run": "fit", "seconds_all_jobs": ranks_s,
+          "history": {k: hist[0][k] for k in ("train_loss", "val_loss", "n_train")},
+          "written": [r["written"] for r in fit], "checkpoints": ckpts,
+          "predictions": len(preds), "evaluate": fit[0]["evaluate"],
+          "suite": fit[0]["suite"]})
+    check(all(h[k] == hist[0][k] for h in hist for k in ("train_loss", "val_loss", "n_train")),
+          "fit's histories differ between ranks")
+    check(all(r["evaluate"] == fit[0]["evaluate"] and r["suite"] == fit[0]["suite"]
+              for r in fit), "the ranks' evaluation metrics differ")
+    check(all(np.isfinite(list(fit[0]["evaluate"].values()))), "non-finite metrics")
+    check(len(hist[0]["train_loss"]) == 2 and np.isfinite(hist[0]["val_loss"]).all(),
+          f"fit history {hist[0]}")
+    check(len(ckpts) == 1, f"checkpoints {ckpts}")
+    check(len(preds) == 5 and sum(r["written"] for r in fit) == 5,
+          f"predictions {preds}, written {[r['written'] for r in fit]}")
+    arrays = [np.load(os.path.join(f"{tmp}/fit/predictions", p_)) for p_ in preds]
+    check(all(a.shape == TRAIN_SHAPE[1:] and np.isfinite(a).all() for a in arrays),
+          "fit's predictions are not finite native-size maps")
+
+    one = world1["world1_flagship_float32"][0]
+    loss0 = one["losses"][0]["loss"]
+    want0 = refs["flagship_float32"]["losses"][0]["loss"]
+    emit({**out, "run": "nccl_world1", "backend_ran": one["backend"], "loss": loss0,
+          "one_process_loss": want0, "step_ms": one["step_ms"],
+          "one_process_step_ms": refs["flagship_float32"]["ms"]})
+    check(one["backend"] == "nccl", f"the world of one ran over {one['backend']}")
+    check(abs(loss0 - want0) <= TOL_TRAIN_LOSS * abs(want0),
+          f"NCCL world of one: loss {loss0} vs one process {want0}")
+
+    # the training CLI at W, which starts its own ranks
+    cli_results = os.path.join(tmp, "cli", "results")
+    pred_dir = os.path.join(tmp, "cli", "preds")
+    argv = ["--device", device, "--data-dir", data,
+            *(a for x in ("training.n_epoch=2", f"framework.mesh.data={world}",
+                          f"paths.results_dir={cli_results}",
+                          f"paths.predictions_dir={pred_dir}",
+                          "experiment.wandb_disable=true", *PARALLEL_SETS["flagship"])
+              for a in ("--set", x))]
+    saved = os.environ.get("MDE_DIST_BACKEND")
+    os.environ["MDE_DIST_BACKEND"] = backend
+    t0 = time.perf_counter()
+    try:
+        returned = train_cli.main(argv)
+    finally:
+        if saved is None:
+            os.environ.pop("MDE_DIST_BACKEND")
+        else:
+            os.environ["MDE_DIST_BACKEND"] = saved
+    cli_s = time.perf_counter() - t0
+    ckpts = sorted(f for f in os.listdir(cli_results) if f.endswith(".pth"))
+    preds = sorted(os.listdir(pred_dir))
+    emit({**out, "run": "cli", "seconds": cli_s, "checkpoints": ckpts,
+          "predictions": len(preds)})
+    check(returned is None, "the CLI trained in this process instead of starting its ranks")
+    check(len(ckpts) == 1 and len(preds) == 5, f"CLI wrote {ckpts}, {len(preds)} predictions")
+
+
+def _one_process_refs(runs: dict, batches) -> dict:
+    """The one-process steps on the card that the ranks of both phases are
+    held to, by run label: losses, step ms, the last step's gradients and
+    the state after; a bf16 run's float32 gradient too; and the float64
+    update (``flagship_float64``)."""
+    refs = {}
+    for label, (name, dtype, cfg, model) in runs.items():
+        losses, ms, grads, state = _one_process_steps(model, cfg, batches)
+        refs[label] = {"losses": losses, "ms": ms, "grads": grads, "state": state}
+        if dtype != "float32":
+            cfg32 = copy.deepcopy(cfg)
+            cfg32.framework.compute_dtype = "float32"
+            refs[label]["grads32"] = _one_process_steps(model, cfg32, batches)[2]
+    cfg = model_cfg("flagship", "framework.compute_dtype=float32")
+    losses, ms, _, state = _one_process_steps(runs["flagship_float32"][3], cfg,
+                                              batches[:PARALLEL_F64_STEPS], float64=True)
+    refs["flagship_float64"] = {"losses": losses, "ms": ms, "state": state,
+                                "learning_rate": float(cfg.framework.learning_rate)}
+    return refs
+
+
+# Tensor parallelism (the tensor_parallel phase, paths tp_flagship and
+# tp_da2): the PARALLEL_RUNS again over a model axis of T = 2, each rank a
+# Megatron share of the DINOv2 (the flagship's frozen branch, DA-V2-S's
+# trained trunk) and of the cross-attention, against the same one-process
+# steps and the same world-of-one witnesses, at the same bounds: a row
+# layer's bf16 partial sums are rounded to bf16 before their all-reduce
+# (one rounding more than one process, half a bf16 ulp of a block's
+# output), which moves a bf16 gradient within the rounding that a data
+# rank's split of the batch sums already brings, the witness's order. The
+# (1, 2) world also runs the float64 update and writes a sharded checkpoint
+# of its float32 run, which one process restores. Then the training CLI at
+# T = 2 for one epoch: one checkpoint in the full grammar, loaded into one
+# process, whose predictions of the test images are held to the ranks' at
+# TOL_TOOL_PRED (cuDNN's transposed convolution sums in another order from
+# run to run).
+TP_WORLD_JOBS = {(1, 2): ("flagship_float32", "flagship_bfloat16", "da2_bfloat16",
+                          "flagship_float64"),
+                 (2, 2): ("flagship_float32", "da2_bfloat16")}
+PATH_KERNELS["tp_flagship"] = ("window_attention", "window_attention_bf16",
+                               "window_attention_backward", "window_attention_backward_bf16",
+                               "preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward",
+                               "flash_attention", "flash_attention_bf16")
+PATH_KERNELS["tp_da2"] = ("preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward",
+                          "flash_attention_bf16", "flash_attention_backward_bf16")
+
+
+def _tp_worlds() -> tuple[tuple, str, str]:
+    """((data, model) worlds, --device, backend): one card a rank over NCCL
+    with two cards ((1, 2)) or four ((1, 2) and (2, 2)); on one card, ranks
+    sharing it over gloo at (1, 2) and (2, 2), as ``_parallel_world``."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return (((1, 2), (2, 2)) if n >= 4 else ((1, 2),)), "cuda", "nccl"
+    return ((1, 2), (2, 2)), "cuda:0", "gloo"
+
+
+def start_tensor_parallel(tmp: str, step_jobs: dict, data: str) -> Background:
+    """Start the tensor_parallel phase's ranks in a thread: the (1, 2) world
+    of ``_tp_worlds`` on its TP_WORLD_JOBS (the parallel phase's step jobs
+    at ``model_axis`` 2), then the (2, 2) world beside the training CLI at
+    ``framework.mesh.model=2``, started as a user starts it (its own
+    process, which starts its ranks). Its result: the worlds, device,
+    backend, each job's ranks (``got``), seconds and the CLI's exit."""
+    from mde_tpu_torch.parallel import launch
+
+    worlds, device, backend = _tp_worlds()
+    got, seconds = {}, {}
+
+    def world(d: int, t: int) -> None:
+        jobs = [{**step_jobs[label], "name": f"tp{d}{t}_{label}", "model_axis": t}
+                for label in TP_WORLD_JOBS[(d, t)]]
+        if (d, t) == (1, 2):
+            jobs[0]["save_sharded"] = os.path.join(tmp, "tp_sharded")
         t0 = time.perf_counter()
-        got = launch.run({"world": world, "device": device, "out": tmp, "threads": 4,
-                          "jobs": jobs}, os.path.join(tmp, "spec.json"), timeout=900,
-                         backend=backend)
-        ranks_s = time.perf_counter() - t0
-        check(read_counts() == dict.fromkeys(_counters(), 0),
-              "the main process launched a kernel while the ranks ran")
-        # a world of one over NCCL through the same DDP code, the BN layers
-        # in the cross-process form: each run's noise witness
-        world1 = launch.run({"world": 1, "device": "cuda", "out": tmp, "jobs": [
-            {**job, "name": f"world1_{job['name']}"} for job in jobs[:len(runs)]]},
-            os.path.join(tmp, "spec1.json"), timeout=300, backend="nccl")
-        check(all(r["backend"] == backend and r["world"] == world
-                  for job in got.values() for r in job),
-              f"ranks ran over {[(r['backend'], r['world']) for r in got['fit']]}")
-        results = {}
-        for label, (name, dtype, cfg, model) in runs.items():
-            result = results[label] = _check_parallel_run(label, name, dtype, cfg, model,
-                                                          got[label], batches,
-                                                          world1[f"world1_{label}"][0])
-            for r in got[label]:
+        got.update(launch.run(
+            {"world": d * t, "device": device, "out": tmp, "threads": 2, "jobs": jobs},
+            os.path.join(tmp, f"spec_tp{d}{t}.json"), timeout=900, backend=backend))
+        seconds[f"{d}x{t}"] = time.perf_counter() - t0
+
+    def work() -> dict:
+        world(*worlds[0])
+        rest = [Background(lambda w=w: world(*w)) for w in worlds[1:]]
+        try:
+            cli = os.path.join(tmp, "tp_cli")
+            argv = [sys.executable, "-m", "mde_tpu_torch.tools.main", "--device", device,
+                    "--data-dir", data,
+                    *(a for x in ("training.n_epoch=1", "framework.mesh.model=2",
+                                  "framework.mesh.data=1", f"paths.results_dir={cli}/results",
+                                  f"paths.predictions_dir={cli}/preds",
+                                  "experiment.wandb_disable=true", *PARALLEL_SETS["flagship"])
+                      for a in ("--set", x))]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, env={**os.environ, "MDE_DIST_BACKEND": backend},
+                                  cwd=os.path.dirname(os.path.abspath(__file__)),
+                                  capture_output=True, text=True, timeout=900)
+            seconds["cli"] = time.perf_counter() - t0
+        finally:
+            for task in rest:
+                task.wait()
+        for task in rest:
+            task.result()
+        return {"worlds": worlds, "device": device, "backend": backend, "got": got,
+                "seconds": seconds, "cli": {"rc": proc.returncode, "dir": cli,
+                                            "stderr": proc.stderr[-3000:]}}
+
+    return Background(work)
+
+
+def finish_tensor_parallel(task: Background, runs: dict, refs: dict, world1: dict, batches,
+                           tmp: str) -> dict:
+    """Wait for the thread of ``start_tensor_parallel`` and check what its
+    ranks saw: (a) the runs against the one-process steps and the
+    witnesses, (b) launches a rank a step, (c) each rank's parameter bytes
+    at the layout's share, (d) the sharded checkpoint restored in one
+    process, and the CLI's checkpoint loaded into one process, whose
+    predictions equal the ranks'; (e) each rank's step ms beside one
+    process's, on the runs' lines. Returns the launches by path."""
+    from mde_tpu_torch.tools.common import bootstrap_model, build_loaders, resolve_paths
+    from mde_tpu_torch.train.checkpoint import load_checkpoint_sharded, load_training_checkpoint
+    from mde_tpu_torch.train.trainer import generate_test_predictions
+
+    run = task.result()
+    head = {"phase": "tensor_parallel", "worlds": [list(w) for w in run["worlds"]],
+            "device": run["device"], "backend": run["backend"],
+            "cards": torch.cuda.device_count(), "seconds": run["seconds"],
+            "note": ("the ranks share one card over gloo: a correctness run; their step times "
+                     "are readings, not a scaling figure" if run["backend"] == "gloo"
+                     else "one card a rank over NCCL")}
+    emit(head)
+    launches = {path: dict.fromkeys(_counters(), 0) for path in ("tp_flagship", "tp_da2")}
+    for d, t in run["worlds"]:
+        for label in TP_WORLD_JOBS[(d, t)]:
+            ranks = run["got"][f"tp{d}{t}_{label}"]
+            tag = f"{d}x{t}_{label}"
+            at = [(r["data_index"], r["model_index"]) for r in ranks]
+            check(at == [(p // t, p % t) for p in range(d * t)],
+                  f"tensor_parallel {tag}: ranks at {at}")
+            check(all(r["backend"] == run["backend"] for r in ranks),
+                  f"tensor_parallel {tag}: ranks ran over {[r['backend'] for r in ranks]}")
+            shares = {"param_bytes": [r["param_bytes"] for r in ranks],
+                      "param_bytes_predicted": ranks[0]["param_bytes_predicted"],
+                      "param_bytes_whole": ranks[0]["param_bytes_whole"],
+                      "sharded_keys": len(ranks[0]["sharded_keys"])}
+            emit({**head, "run": tag, "share": shares})
+            check(all(r["param_bytes"] == r["param_bytes_predicted"] for r in ranks),
+                  f"tensor_parallel {tag}: parameter bytes {shares}")
+            check(shares["sharded_keys"] > 0, f"tensor_parallel {tag}: nothing sharded")
+            if label == "flagship_float64":
+                _check_parallel_float64(runs["flagship_float32"][3], refs[label], ranks,
+                                        phase="tensor_parallel", run_name=tag)
+                continue
+            name, dtype = runs[label][:2]
+            _check_parallel_run(label, name, dtype, refs[label], ranks,
+                                world1[f"world1_{label}"][0], phase="tensor_parallel",
+                                run_name=tag)
+            path = launches[f"tp_{name}"]
+            for r in ranks:
                 for step in r["launches"]:
                     for k, v in step.items():
-                        total[k] += v
-        _check_parallel_float64(runs["flagship_float32"][3], got["flagship_float64"],
-                                batches[:PARALLEL_F64_STEPS])
-        _check_parallel_bn(bn_input, got["bn_bf16"])
-        fit = got["fit"]
-        hist = [r["history"] for r in fit]
-        ckpts = sorted(f for f in os.listdir(f"{tmp}/fit/results") if f.endswith(".pth"))
-        preds = sorted(os.listdir(f"{tmp}/fit/predictions"))
-        emit({**out, "run": "fit", "seconds_all_jobs": ranks_s,
-              "history": {k: hist[0][k] for k in ("train_loss", "val_loss", "n_train")},
-              "written": [r["written"] for r in fit], "checkpoints": ckpts,
-              "predictions": len(preds), "evaluate": fit[0]["evaluate"],
-              "suite": fit[0]["suite"]})
-        check(all(h[k] == hist[0][k] for h in hist for k in ("train_loss", "val_loss", "n_train")),
-              "fit's histories differ between ranks")
-        check(all(r["evaluate"] == fit[0]["evaluate"] and r["suite"] == fit[0]["suite"]
-                  for r in fit), "the ranks' evaluation metrics differ")
-        check(all(np.isfinite(list(fit[0]["evaluate"].values()))), "non-finite metrics")
-        check(len(hist[0]["train_loss"]) == 2 and np.isfinite(hist[0]["val_loss"]).all(),
-              f"fit history {hist[0]}")
-        check(len(ckpts) == 1, f"checkpoints {ckpts}")
-        check(len(preds) == 5 and sum(r["written"] for r in fit) == 5,
-              f"predictions {preds}, written {[r['written'] for r in fit]}")
-        arrays = [np.load(os.path.join(f"{tmp}/fit/predictions", p_)) for p_ in preds]
-        check(all(a.shape == TRAIN_SHAPE[1:] and np.isfinite(a).all() for a in arrays),
-              "fit's predictions are not finite native-size maps")
+                        path[k] += v
 
-        one = world1["world1_flagship_float32"][0]
-        loss0 = one["losses"][0]["loss"]
-        want0 = results["flagship_float32"]["losses_one_process"][0]
-        emit({**out, "run": "nccl_world1", "backend_ran": one["backend"], "loss": loss0,
-              "one_process_loss": want0, "step_ms": one["step_ms"],
-              "one_process_step_ms": results["flagship_float32"]["step_ms_one_process"]})
-        check(one["backend"] == "nccl", f"the world of one ran over {one['backend']}")
-        check(abs(loss0 - want0) <= TOL_TRAIN_LOSS * abs(want0),
-              f"NCCL world of one: loss {loss0} vs one process {want0}")
+    device = torch.device(run["device"])  # the card the ranks ran on (the first of several)
+    # (d) the (1, 2) world's sharded checkpoint restored in one process
+    model = copy.deepcopy(runs["flagship_float32"][3]).to(device)
+    load_checkpoint_sharded(os.path.join(tmp, "tp_sharded"), model)
+    saved = run["got"]["tp12_flagship_float32"][0]["state_dict"]
+    restored = model.state_dict()
+    same = all(torch.equal(restored[k].cpu().float() if v.is_floating_point()
+                           else restored[k].cpu(), v) for k, v in saved.items())
+    emit({**head, "run": "sharded_checkpoint", "restored_at": [1, 1], "tensors": len(saved),
+          "identical": same})
+    check(same, "tensor_parallel: the sharded checkpoint restored other values in one process")
 
-        # the training CLI at W, which starts its own ranks
-        cli_results = os.path.join(tmp, "cli", "results")
-        pred_dir = os.path.join(tmp, "cli", "preds")
-        argv = ["--device", device, "--data-dir", data,
-                *(a for x in ("training.n_epoch=2", f"framework.mesh.data={world}",
-                              f"paths.results_dir={cli_results}",
-                              f"paths.predictions_dir={pred_dir}",
-                              "experiment.wandb_disable=true") for a in ("--set", x))]
-        saved = os.environ.get("MDE_DIST_BACKEND")
-        os.environ["MDE_DIST_BACKEND"] = backend
-        t0 = time.perf_counter()
-        try:
-            returned = train_cli.main(argv)
-        finally:
-            if saved is None:
-                os.environ.pop("MDE_DIST_BACKEND")
-            else:
-                os.environ["MDE_DIST_BACKEND"] = saved
-        cli_s = time.perf_counter() - t0
-        ckpts = sorted(f for f in os.listdir(cli_results) if f.endswith(".pth"))
-        preds = sorted(os.listdir(pred_dir))
-        emit({**out, "run": "cli", "seconds": cli_s, "checkpoints": ckpts,
-              "predictions": len(preds)})
-        check(returned is None, "the CLI trained in this process instead of starting its ranks")
-        check(len(ckpts) == 1 and len(preds) == 5, f"CLI wrote {ckpts}, {len(preds)} predictions")
-    check_path_launches("parallel", total, "by the ranks' train steps")
-    return total
+    # (d) the training CLI at T = 2: its checkpoint, in one process
+    cli = run["cli"]
+    check(cli["rc"] == 0, f"tensor_parallel CLI exited {cli['rc']}: {cli['stderr']}")
+    cfg = model_cfg("flagship", *PARALLEL_SETS["flagship"],
+                    f"paths.data_dir={os.path.join(tmp, 'data')}",
+                    f"paths.results_dir={cli['dir']}/one/results",
+                    f"paths.predictions_dir={cli['dir']}/one/preds")
+    ckpts = sorted(f for f in os.listdir(f"{cli['dir']}/results") if f.endswith(".pth"))
+    check(len(ckpts) == 1, f"tensor_parallel CLI wrote {ckpts}")
+    path = os.path.join(cli["dir"], "results", ckpts[0])
+    payload = load_training_checkpoint(path)
+    model, report = bootstrap_model(cfg, device, path)
+    grammar = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    full = {k: tuple(v.shape) for k, v in payload["model_state_dict"].items()} == grammar
+    loader = build_loaders(cfg, resolve_paths(cfg), train=False, device=device)["test"]
+    written = generate_test_predictions(model, cfg, loader, f"{cli['dir']}/one/preds")
+    names = sorted(os.listdir(f"{cli['dir']}/preds"))
+    gaps = [float(np.abs(np.load(f"{cli['dir']}/preds/{n}")
+                         - np.load(f"{cli['dir']}/one/preds/{n}")).max()) for n in names]
+    emit({**head, "run": "cli", "seconds": run["seconds"].get("cli"), "checkpoint": ckpts,
+          "full_grammar": full, "loaded": report["loaded"],
+          "shape_mismatch": report["shape_mismatch"], "predictions": len(names),
+          "one_process_written": written, "max_abs_vs_one_process": max(gaps or [None]),
+          "tolerance": TOL_TOOL_PRED})
+    check(full and not report["shape_mismatch"] and report["loaded"] == len(grammar),
+          "tensor_parallel CLI: its checkpoint is not the full grammar")
+    check(len(names) == 5 and written == 5, f"tensor_parallel CLI: {len(names)} predictions")
+    check(max(gaps) <= TOL_TOOL_PRED,
+          f"tensor_parallel CLI: one process's predictions {max(gaps)} from the ranks'")
+    for path_name, counts in launches.items():
+        check_path_launches(path_name, counts, f"by the {path_name} ranks")
+    return launches
 
 
 def _one_process_steps(model, cfg, batches, float64: bool = False) -> tuple[list, list, dict, dict]:
@@ -3303,12 +3620,15 @@ def _gap_leaves(got: dict, want: dict, n: int = 3) -> list:
             for k in sorted(sq, key=sq.get, reverse=True)[:n]]
 
 
-def _check_parallel_run(label, name, dtype, cfg, model, ranks, batches, world1) -> dict:
-    """The one-process steps of ``label`` on the card against its W-rank run;
-    returns the numbers the phase line prints. ``world1`` is the run's world
-    of one over NCCL: its gradient against one process's is the noise
-    witness a bf16 run's gradient is held to (PARALLEL_RUNS' comment)."""
-    losses, ms, grads, state = _one_process_steps(model, cfg, batches)
+def _check_parallel_run(label, name, dtype, ref: dict, ranks, world1,
+                        phase: str = "parallel", run_name: str = None) -> dict:
+    """The one-process steps of ``label`` on the card (``ref``, from
+    ``_one_process_refs``) against its ranks' run; returns the numbers the
+    phase line prints. ``world1`` is the run's world of one over NCCL: its
+    gradient against one process's is the noise witness a bf16 run's
+    gradient is held to (PARALLEL_RUNS' comment). The ranks' gradients and
+    state are the full grammar (gathered over the model group at T > 1)."""
+    losses, ms, grads, state = ref["losses"], ref["ms"], ref["grads"], ref["state"]
     state = {k: v.detach().cpu().float() for k, v in state.items()
              if k in ranks[0]["state_dict"] and v.is_floating_point()}
     r0 = ranks[0]
@@ -3334,17 +3654,16 @@ def _check_parallel_run(label, name, dtype, cfg, model, ranks, batches, world1) 
         tol_grad = TOL_GRAD_GLOBAL
     else:
         tol_grad = PARALLEL_BF16_GRAD * max(witness, PARALLEL_BF16_GRAD_FLOOR)
-        cfg32 = copy.deepcopy(cfg)
-        cfg32.framework.compute_dtype = "float32"
-        grads32 = _one_process_steps(model, cfg32, batches)[2]
-        result["grad_rel_l2_vs_float32"] = {"ranks": _grad_rel(r0["grads"], grads32),
-                                            "one_process": _grad_rel(grads, grads32)}
+        result["grad_rel_l2_vs_float32"] = {"ranks": _grad_rel(r0["grads"], ref["grads32"]),
+                                            "one_process": _grad_rel(grads, ref["grads32"])}
     result["tolerances"] = {"loss": tol_loss, "grad": tol_grad, "state": tol_loss}
+    label = run_name or label
+    result["losses_by_rank"] = [[x["loss"] for x in r["losses"]] for r in ranks]
+    emit({"phase": phase, "run": label, **result})
     check(all(r["losses"] == r0["losses"] for r in ranks), f"{label}: ranks' losses differ")
     check(all(r["fingerprint"] == r0["fingerprint"] for r in ranks),
           f"{label}: ranks' weights differ after the steps")
     check(all(np.isfinite([x["loss"] for x in r0["losses"]])), f"{label}: non-finite loss")
-    emit({"phase": "parallel", "run": label, **result})
     check(max(loss_rel) <= tol_loss, f"{label}: losses {loss_rel} above {tol_loss}")
     check(grad_rel <= tol_grad, f"{label}: gradient rel-L2 {grad_rel} above {tol_grad}")
     check(state_rel <= tol_loss, f"{label}: state rel-L2 {state_rel} above {tol_loss}")
@@ -3353,11 +3672,11 @@ def _check_parallel_run(label, name, dtype, cfg, model, ranks, batches, world1) 
     return result
 
 
-def _check_parallel_float64(model, ranks, batches) -> dict:
+def _check_parallel_float64(model, ref: dict, ranks, phase: str = "parallel",
+                            run_name: str = "flagship_float64") -> dict:
     """The ranks' float64 steps at the config's learning rate against one
-    process's on the card (PARALLEL_F64_STEPS)."""
-    cfg = model_cfg("flagship", "framework.compute_dtype=float32")
-    losses, ms, _, state = _one_process_steps(model, cfg, batches, float64=True)
+    process's on the card (``ref``: PARALLEL_F64_STEPS)."""
+    losses, ms, state = ref["losses"], ref["ms"], ref["state"]
     r0 = ranks[0]
     keys = [k for k, v in r0["state_dict"].items() if v.is_floating_point()]
     state = {k: state[k].detach().cpu() for k in keys}
@@ -3367,19 +3686,20 @@ def _check_parallel_float64(model, ranks, batches) -> dict:
                         torch.cat([state[k].double().flatten() for k in keys]))
     moved = sum(not torch.equal(state[k].float(), before[k].float()) for k in keys)
     per_step = [{k: v for k, v in s_.items() if v} for r in ranks for s_ in r["launches"]]
-    result = {"learning_rate": float(cfg.framework.learning_rate),
+    result = {"learning_rate": ref["learning_rate"],
               "losses_ranks": [x["loss"] for x in r0["losses"]],
               "losses_one_process": [x["loss"] for x in losses], "loss_rel": loss_rel,
               "state_rel_l2": state_rel, "tensors_moved": moved, "tensors": len(keys),
               "step_ms_by_rank": [r["step_ms"] for r in ranks], "step_ms_one_process": ms,
               "tolerance": TOL_PARALLEL_F64}
-    emit({"phase": "parallel", "run": "flagship_float64", **result})
+    emit({"phase": phase, "run": run_name, **result})
     check(all(r["losses"] == r0["losses"] and r["fingerprint"] == r0["fingerprint"]
-              for r in ranks), "float64: the ranks' losses or weights differ")
-    check(max(loss_rel) <= TOL_PARALLEL_F64, f"float64: losses {loss_rel}")
-    check(state_rel <= TOL_PARALLEL_F64, f"float64: state rel-L2 {state_rel}")
-    check(moved > 100, f"float64: only {moved} tensors moved: no update ran")
-    check(all(not s_ for s_ in per_step), f"float64 runs the plain versions, launched {per_step}")
+              for r in ranks), f"{run_name}: the ranks' losses or weights differ")
+    check(max(loss_rel) <= TOL_PARALLEL_F64, f"{run_name}: losses {loss_rel}")
+    check(state_rel <= TOL_PARALLEL_F64, f"{run_name}: state rel-L2 {state_rel}")
+    check(moved > 100, f"{run_name}: only {moved} tensors moved: no update ran")
+    check(all(not s_ for s_ in per_step),
+          f"{run_name} runs the plain versions, launched {per_step}")
     return result
 
 
@@ -3476,7 +3796,13 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--parallel-only"]:
         # the data-parallel phase alone: the quick run for its own changes
-        emit({"parallel_launches": phase_parallel()})
+        emit({"parallel_launches": phase_parallel(tensor_parallel=False)})
+        return 0
+    if sys.argv[1:] == ["--tp-only"]:
+        # the tensor_parallel phase alone (with the one-process steps and the
+        # world-of-one witnesses it is held to)
+        emit({"tp_launches": phase_parallel(data_parallel=False),
+              "seconds": time.perf_counter() - T0})
         return 0
     if sys.argv[1:] == ["--zoo-only"]:
         # the zoo phase alone: the quick run for the zoo's models
@@ -3492,7 +3818,8 @@ def main() -> int:
         emit({"export_zoo_launches": phase_export_zoo(), "seconds": time.perf_counter() - T0})
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
-          "--k4-backward-only, --k2-only, --parallel-only, --zoo-only and --export-only")
+          "--k4-backward-only, --k2-only, --parallel-only, --tp-only, --zoo-only and "
+          "--export-only")
     phase_s, mark = {}, [time.perf_counter()]
 
     def lap(phase: str) -> None:  # the seconds since the last lap, by phase
@@ -3520,11 +3847,11 @@ def main() -> int:
     lap("export_zoo")
     examples = start_examples()  # beside the parallel phase, which times nothing it checks
     try:
-        by_path["parallel"] = phase_parallel()
+        by_path.update(phase_parallel())  # the tensor_parallel phase's worlds beside it
     except BaseException:
         stop_examples(examples)
         raise
-    lap("parallel")
+    lap("parallel_and_tensor_parallel")
     by_path.update(finish_examples(examples))
     lap("examples")
     emit({"seconds_by_phase": phase_s})

@@ -14,8 +14,9 @@ Depth maps are channel-less (B, H, W), as in the JAX package; RGB is the
 model's NCHW (B, 3, H, W) where the JAX package takes NHWC. Masked means are
 where-masked sums, as in the JAX package (the reference indexes ``pred[mask]``).
 
-``sharded=True`` gives the loss of the global batch when each of W
-processes holds an equal share of its rows: each term is a function of
+``sharded=True`` gives the loss of the global batch when each of the W
+data-parallel ranks (the data group; the model ranks of a data index hold
+the same rows) holds an equal share of its rows: each term is a function of
 sums over the batch (the SiLog term's masked means, the edge term's RGB
 gradient span among them), and those sums go through ``global_sum`` (the
 span through ``global_max``), as GSPMD reduces them across devices in the
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import si_loss_sums
-from ..parallel.distributed import global_max, global_sum, process_count
+from ..parallel.distributed import data_count, data_group, global_max, global_sum
 
 
 def _over_batch(sums: torch.Tensor, sharded: bool) -> tuple[torch.Tensor, int]:
@@ -37,7 +38,7 @@ def _over_batch(sums: torch.Tensor, sharded: bool) -> tuple[torch.Tensor, int]:
     ``sharded``. The shares are equal, so a count of this process's rows
     times the number of processes is the global batch's."""
     if sharded:
-        return global_sum(sums), process_count()
+        return global_sum(sums, data_group()), data_count()
     return sums, 1
 
 
@@ -107,7 +108,7 @@ def edge_aware_loss(pred, target, rgb, beta: float = 0.5, sharded: bool = False)
     rgb_dx, rgb_dy = _padded_grads(rgb)
     grad_mag = torch.sqrt(torch.square(rgb_dx).mean(dim=1) + torch.square(rgb_dy).mean(dim=1))
     span = torch.stack([grad_mag.max(), -grad_mag.min()])
-    hi, neg_lo = (global_max(span) if sharded else span).unbind()
+    hi, neg_lo = (global_max(span, data_group()) if sharded else span).unbind()
     grad_mag = (grad_mag + neg_lo) / (hi + neg_lo + 1e-6)
     pred_dx, pred_dy = _padded_grads(pred)
     target_dx, target_dy = _padded_grads(target)

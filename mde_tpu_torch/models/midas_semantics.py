@@ -31,6 +31,7 @@ from ..nn.blocks import (BatchNorm, Conv, ConvTranspose, FeatureFusionBlockCusto
 from ..nn.vit import VIT_CONFIGS, ViT
 from ..ops.resize import resize_bilinear
 from ..ops.window_attention import windowed_cross_attention
+from ..parallel.tensor import gather_from_model, scatter_to_model
 from .midas_small import CONSTANT_KEY_PREFIXES, MidasNetSmall, dgr_blocks
 
 # Keys of the reference grammar that no forward reads: refinenet4 is only ever
@@ -73,7 +74,17 @@ def _conv_bn_relu(conv: nn.Module, c: int) -> list[nn.Module]:
 class CrossAttention(nn.Module):
     """Windowed cross-attention with an 8x conv reduction and upsampling
     (midas_semantics.py:14-127). ``spatial_reduction`` is one module applied
-    to both inputs, as in the reference."""
+    to both inputs, as in the reference.
+
+    Under tensor parallelism (parallel/tensor.py) q, k and v hold this
+    rank's heads, and K1 runs on them alone. ``norm_out`` normalises over the
+    full width, so the heads are gathered before it; ``proj`` is then
+    row-parallel on this rank's block of the normalised output, as
+    ``tp_param_spec`` shards it (``scatter_to_model`` sums the blocks'
+    gradients back to the full width, which ``norm_out`` needs).
+    """
+
+    tp_linears = {"q": "column", "k": "column", "v": "column", "proj": "row"}
 
     def __init__(self, dim: int, num_heads: int = 8, window_size: int = 16):
         super().__init__()
@@ -98,8 +109,14 @@ class CrossAttention(nn.Module):
         q = self.q(self.norm_q(x_r))
         k = self.k(self.norm_k(ctx_r))
         v = self.v(self.norm_v(ctx_r))
-        out = windowed_cross_attention(q, k, v, self.num_heads, self.window_size, plain)
-        out = self.proj(self.norm_out(out)).permute(0, 3, 1, 2)
+        width = x_r.shape[-1]
+        heads = self.num_heads * q.shape[-1] // width  # all, or this model rank's share
+        out = windowed_cross_attention(q, k, v, heads, self.window_size, plain)
+        if heads < self.num_heads:
+            out = scatter_to_model(self.norm_out(gather_from_model(out)))
+        else:
+            out = self.norm_out(out)
+        out = self.proj(out).permute(0, 3, 1, 2)
         # The transposed convs restore exactly 8x; crop if the input was not
         # divisible by 8.
         return self.spatial_upsample(out)[:, :, :h, :w] + x

@@ -42,6 +42,10 @@ VIT_CONFIGS = {
 
 
 class Mlp(nn.Module):
+    # under tensor parallelism (parallel/tensor.py): fc1 holds a block of the
+    # hidden features, GELU runs on it, and fc2 sums the blocks
+    tp_linears = {"fc1": "column", "fc2": "row"}
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
@@ -52,18 +56,24 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
+    # under tensor parallelism (parallel/tensor.py): qkv holds this rank's
+    # heads of each of q, k and v, and proj sums the ranks' heads
+    tp_linears = {"qkv": "column", "proj": "row"}
+
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, plain: bool = False):
-        b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        b, n, _ = x.shape
+        qkv = self.qkv(x)
+        heads = qkv.shape[-1] // (3 * self.head_dim)  # all, or this model rank's share
+        qkv = qkv.reshape(b, n, 3, heads, self.head_dim)
         attend = flash_attention_plain if plain else flash_attention
         out = attend(*qkv.unbind(2))  # q/k/v: (B, N, heads, hd) views, read in place
-        return self.proj(out.reshape(b, n, c))
+        return self.proj(out.reshape(b, n, heads * self.head_dim))
 
 
 class LayerScale(nn.Module):

@@ -17,6 +17,15 @@ which NCCL refuses). The data contract is the JAX package's:
 - only process 0 writes checkpoints and logs; ``barrier`` keeps the others
   from racing past a save.
 
+Under tensor parallelism (``framework.mesh.model`` = T > 1) the world is a
+(data, model) grid, as ``make_mesh`` reshapes the devices to (data, model):
+rank p sits at data index p // T and model index p % T, so a model group is
+T consecutive ranks and a data group the ranks of one model index
+(``set_model_axis`` makes both kinds of group). The rows of a batch, the
+loss sums, the metric sums, BatchNorm's statistics and the gradient average
+go over the data group; the Megatron collectives of ``parallel.tensor`` go
+over the model group.
+
 Launchers: the training CLI spawns one process per card itself; under
 torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) or with the ``MDE_DIST_*`` variables each process joins
@@ -119,8 +128,75 @@ def initialize_from_env(device: str = "cpu") -> bool:
 
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
+    _AXES.update(model=1, model_group=None, data_group=None)
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+# The model axis: T and this rank's two groups (None: the default group, the
+# whole world; ``set_model_axis`` names them).
+_AXES = {"model": 1, "model_group": None, "data_group": None}
+
+
+def set_model_axis(model: int) -> None:
+    """Split the world into (data, model) = (W / ``model``, ``model``) groups.
+
+    Every rank calls it with the same ``model``, and creates every group in
+    the same order (``dist.new_group`` is collective): first the data
+    indices' model groups, ranks [d T, (d + 1) T), then the model indices'
+    data groups, ranks m, m + T, .... A group that is the whole world stays
+    the default group. ``model`` 1 leaves the data group the world, as a
+    data-parallel run has it.
+    """
+    world, rank = process_count(), process_index()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide {world} processes")
+    groups = {"model_group": None, "data_group": None}
+    if model > 1 and world > 1:
+        data = world // model
+        layouts = {"model_group": [list(range(d * model, (d + 1) * model)) for d in range(data)],
+                   "data_group": [list(range(m, world, model)) for m in range(model)]}
+        for key, layout in layouts.items():
+            for ranks in layout:
+                group = dist.new_group(ranks) if len(ranks) < world else None
+                if rank in ranks:
+                    groups[key] = group
+    _AXES.update(model=model, **groups)
+
+
+def model_count() -> int:
+    """T, the ranks that share one data index (1 without tensor parallelism)."""
+    return _AXES["model"]
+
+
+def model_index() -> int:
+    return process_index() % model_count()
+
+
+def data_count() -> int:
+    """The data-parallel ranks: the world over T."""
+    return process_count() // model_count()
+
+
+def data_index() -> int:
+    return process_index() // model_count()
+
+
+def model_group():
+    """This rank's model group (its data index's T ranks), or None for the
+    default group."""
+    return _AXES["model_group"]
+
+
+def data_group():
+    """This rank's data group (the ranks of its model index), or None for the
+    default group."""
+    return _AXES["data_group"]
+
+
+def group_size(group) -> int:
+    """The ranks of ``group`` (None: the default group; 1 with none joined)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def process_count() -> int:
@@ -140,12 +216,13 @@ def is_multiprocess() -> bool:
     return process_count() > 1
 
 
-def barrier(name: str = "mde_barrier") -> None:
-    """Block until every process reaches this point (no-op in one process).
-    ``name`` says in a traceback which barrier hung."""
+def barrier(name: str = "mde_barrier", group=None) -> None:
+    """Block until every process of ``group`` (None: all of them) reaches this
+    point (no-op in one process). ``name`` says in a traceback which barrier
+    hung."""
     del name
-    if is_multiprocess():
-        dist.barrier()
+    if group_size(group) > 1:
+        dist.barrier(group=group)
 
 
 def local_row_block(global_rows: int, process: Optional[int] = None,
@@ -161,21 +238,22 @@ def local_row_block(global_rows: int, process: Optional[int] = None,
 
 
 class _GlobalSum(torch.autograd.Function):
-    """Sum over the processes; the backward passes the gradient through."""
+    """Sum over a group; the backward passes the gradient through."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad
+        return grad, None
 
 
-def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the processes, differentiable.
+def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the processes of ``group`` (None: all of them),
+    differentiable.
 
     The caller computes the same function of the sum on every process, so
     each process's gradient of that sum is the same, and the gradient of its
@@ -184,22 +262,23 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     ``DistributedDataParallel`` averages over the processes, so the train
     step scales the loss by the process count.
     """
-    return _GlobalSum.apply(x) if is_multiprocess() else x
+    return _GlobalSum.apply(x, group) if group_size(group) > 1 else x
 
 
-def global_max(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise max over the processes (no gradient)."""
+def global_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise max over the processes of ``group`` (no gradient)."""
     out = x.detach().clone()
-    if is_multiprocess():
-        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    if group_size(group) > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 
-def all_reduce_floats(values, device) -> list[float]:
-    """Python floats summed over the processes, in float64 on ``device``."""
+def all_reduce_floats(values, device, group=None) -> list[float]:
+    """Python floats summed over the processes of ``group``, in float64 on
+    ``device``."""
     t = torch.tensor(list(values), dtype=torch.float64, device=device)
-    if is_multiprocess():
-        dist.all_reduce(t)
+    if group_size(group) > 1:
+        dist.all_reduce(t, group=group)
     return t.tolist()
 
 

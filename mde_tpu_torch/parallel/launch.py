@@ -11,15 +11,18 @@ returned.
 
 ``python -m mde_tpu_torch.parallel.launch SPEC.json`` is one rank of a
 checked run (``run_rank``): the jobs of the spec (the cross-process
-BatchNorm on one layer, train steps, or ``fit``) in turn, each rank writing
-what it saw to ``<out>/<job>_rank<p>.pt``, which the caller holds against
-one process. ``run`` spawns the ranks and reads what they wrote. The
-workers import nothing of the JAX package.
+BatchNorm on one layer, the Megatron layers of an MLP, train steps, or
+``fit``) in turn, each over its own (data, model) split of the world
+(``model_axis``: T), each rank writing what it saw to
+``<out>/<job>_rank<p>.pt``, which the caller holds against one process.
+``run`` spawns the ranks and reads what they wrote. The workers import
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import socket
@@ -153,14 +156,16 @@ def _config(job: dict):
 
 
 def _batchnorm_job(job: dict, device, rank: int, world: int) -> dict:
-    """The cross-process BatchNorm on this rank's rows of ``input`` (x, dy,
-    and the layer's state_dict): its output, input gradient, its share of
-    the parameters' gradients (``grads``; a BatchNorm2d's weight and bias
-    also as ``dw`` and ``db``), and the state after. ``layer``:
-    "batchnorm2d" (the default), or "linear_bn" (LeViT's Linear + BatchNorm1d
-    over (B, N, C) tokens, made cross-process by ``data_parallel``'s
-    conversion)."""
-    from .distributed import local_row_block
+    """The cross-process BatchNorm on this rank's data index's rows of
+    ``input`` (x, dy, and the layer's state_dict): its output, input
+    gradient, its share of the parameters' gradients (``grads``; a
+    BatchNorm2d's weight and bias also as ``dw`` and ``db``), and the state
+    after. ``layer``: "batchnorm2d" (the default), or "linear_bn" (LeViT's
+    Linear + BatchNorm1d over (B, N, C) tokens, made cross-process by
+    ``data_parallel``'s conversion). ``over_world``: the statistics over
+    every rank in place of the data group (what a model axis must not do)."""
+    from . import sync_batchnorm
+    from .distributed import data_count, data_index, local_row_block
     from .sync_batchnorm import convert_sync_batchnorm
 
     data = torch.load(job["input"], weights_only=True)
@@ -175,30 +180,89 @@ def _batchnorm_job(job: dict, device, rank: int, world: int) -> dict:
     layer = layer.to(state["bn.weight" if "bn.weight" in state else "weight"].dtype)
     layer.load_state_dict(state)
     convert_sync_batchnorm(layer).to(device).train()
-    lo, hi = local_row_block(data["x"].shape[0], rank, world)
+    lo, hi = local_row_block(data["x"].shape[0], data_index(), data_count())
     x = data["x"][lo:hi].to(device).requires_grad_(True)
-    y = layer(x)
-    y.backward(data["dy"][lo:hi].to(device))
+    group = sync_batchnorm.data_group
+    if job.get("over_world"):
+        sync_batchnorm.data_group = lambda: None
+    try:
+        y = layer(x)
+        y.backward(data["dy"][lo:hi].to(device))
+    finally:
+        sync_batchnorm.data_group = group
     grads = {k: p.grad.cpu() for k, p in layer.named_parameters()}
     return {"y": y.detach().cpu(), "dx": x.grad.cpu(), "dw": grads.get("weight"),
             "db": grads.get("bias"), "grads": grads,
             "state_dict": {k: v.cpu() for k, v in layer.state_dict().items()}}
 
 
+def _mlp_job(job: dict, device, rank: int, world: int) -> dict:
+    """The Megatron layers against their one-process Linears: ``input`` holds
+    a ViT ``Mlp``'s state_dict, x and dy. The MLP goes through
+    ``tensor_parallel`` (fc1 column-, fc2 row-parallel); records its output,
+    the input gradient, fc1's output gathered by ``gather_from_model`` and
+    the parameters' gradients gathered to the full shapes."""
+    from ..nn.vit import Mlp
+    from .distributed import model_count
+    from .tensor import full_state_dict, gather_from_model, tensor_parallel
+
+    data = torch.load(job["input"], weights_only=True)
+    state = data["state_dict"]
+    mlp = Mlp(*state["fc1.weight"].shape[::-1]).to(state["fc1.weight"].dtype)
+    mlp.load_state_dict(state)
+    tensor_parallel(mlp.to(device), model_count())
+    x = data["x"].to(device).requires_grad_(True)
+    y = mlp(x)
+    y.backward(data["dy"].to(device))
+    grads = full_state_dict(mlp, {n: p.grad for n, p in mlp.named_parameters()})
+    return {"y": y.detach().cpu(), "dx": x.grad.cpu(),
+            "fc1": gather_from_model(mlp.fc1(x)).detach().cpu(),
+            "grads": {k: v.cpu() for k, v in grads.items()},
+            "shapes": {k: tuple(v.shape) for k, v in mlp.state_dict().items()}}
+
+
+def _tensor_parallel(model, device):
+    """``model`` on ``device``, through ``tensor_parallel`` at the job's T;
+    returns it with the bytes of its parameters (whole, and a rank's as the
+    layout predicts them) and the layout's sharded keys."""
+    from .distributed import model_count
+    from .mesh import tp_layout
+    from .tensor import predicted_parameter_bytes, tensor_parallel
+
+    size = model_count()
+    layout = tp_layout(model, size)
+    predicted = {"whole": predicted_parameter_bytes(model, {}, 1),
+                 "rank": predicted_parameter_bytes(model, layout, size)}
+    if size > 1:
+        tensor_parallel(model, size)
+    return model.to(device), predicted, sorted(k for k, v in layout.items() if v != "replicated")
+
+
 def _steps_job(job: dict, device, rank: int, world: int) -> dict:
-    """Train steps on this rank's ``local_rows`` of each global batch."""
+    """Train steps on this rank's data index's ``local_rows`` of each global
+    batch, over the job's model axis."""
     from ..data.transforms import make_train_pipeline
     from ..ops import kernels
+    from ..train.checkpoint import load_checkpoint_sharded, save_checkpoint_sharded
     from ..train.trainer import make_optimizer, make_train_step, step_generator
+    from .distributed import data_count, data_index
     from .mesh import data_parallel, local_rows
+    from .tensor import full_optimizer_state, full_state_dict, parameter_bytes
 
     cfg = _config(job)
-    model = torch.load(job["model"], weights_only=False).to(device)
+    model = torch.load(job["model"], weights_only=False)
     pipeline = given_pipeline if job.get("given") else make_train_pipeline(
         bool(cfg.augmentation), cfg.framework.input_size)
     if job.get("float64"):
         model, pipeline = model.double(), float64_pipeline(pipeline)
+    model, predicted, sharded = _tensor_parallel(model, device)
     optimizer = make_optimizer(model, cfg)
+    restored = None
+    if job.get("restore"):
+        load_checkpoint_sharded(job["restore"], model, optimizer)
+        # copies: the steps below update the live tensors in place
+        restored = {"state_dict": {k: v.cpu().clone() for k, v in full_state_dict(model).items()},
+                    "optimizer": copy.deepcopy(full_optimizer_state(model, optimizer))}
     trained = data_parallel(model, device) if torch.distributed.is_initialized() else model
     accum = int(job.get("accum", 1))
     with train_pipeline(pipeline):
@@ -206,7 +270,7 @@ def _steps_job(job: dict, device, rank: int, world: int) -> dict:
                                plain=bool(job.get("plain")))
     losses, ms, launches = [], [], []
     for batch, gen in zip(torch.load(job["batches"], weights_only=False), job["generators"]):
-        rows = local_rows(len(batch["rgb"]), accum, rank, world)
+        rows = local_rows(len(batch["rgb"]), accum, data_index(), data_count())
         rgb, depth = (torch.as_tensor(np.asarray(batch[k])[slice(None) if rows is None else rows])
                       .to(device) for k in ("rgb", "depth"))
         before = kernels.launch_counts()
@@ -218,16 +282,28 @@ def _steps_job(job: dict, device, rank: int, world: int) -> dict:
         ms.append((time.perf_counter() - t0) * 1e3)
         after = kernels.launch_counts()
         launches.append({k: after[k] - before[k] for k in after})
-    state = model.state_dict()
+    if job.get("save_sharded"):
+        save_checkpoint_sharded(job["save_sharded"], model, optimizer, steps=len(losses))
+    state = full_state_dict(model)  # the full grammar: gathered over the model group
+    grads = (full_state_dict(model, {n: p.grad for n, p in model.named_parameters()
+                                     if p.grad is not None}) if job.get("grads") else None)
+    optimizer_state = full_optimizer_state(model, optimizer) if job.get("restore") else None
     out = {"losses": losses, "step_ms": ms, "launches": launches,
-           "fingerprint": {k: v.double().norm().item() for k, v in state.items()}}
+           "fingerprint": {k: v.double().norm().item() for k, v in state.items()},
+           "param_bytes": parameter_bytes(model), "param_bytes_predicted": predicted["rank"],
+           "param_bytes_whole": predicted["whole"],
+           "sharded_keys": sharded}
     if rank == 0:  # float32, without the frozen parameters (no gradient)
         keep = set(state) - {n for n, p in model.named_parameters() if not p.requires_grad}
         out["state_dict"] = {k: v.detach().cpu().float() if v.is_floating_point() else v.cpu()
                              for k, v in state.items() if k in keep}
-        if job.get("grads"):
-            out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
-                            if p.grad is not None}
+        if grads is not None:
+            out["grads"] = {k: v.cpu() for k, v in grads.items()}
+        if restored is not None:
+            out["restored"] = {"state_dict": {k: v.cpu() for k, v in
+                                              restored["state_dict"].items()},
+                               "optimizer": restored["optimizer"],
+                               "optimizer_after": optimizer_state}
     return out
 
 
@@ -242,7 +318,7 @@ def _fit_job(job: dict, device, rank: int, world: int) -> dict:
     from .mesh import data_parallel
 
     cfg = _config(job)
-    model = torch.load(job["model"], weights_only=False).to(device)
+    model = _tensor_parallel(torch.load(job["model"], weights_only=False), device)[0]
     optimizer = make_optimizer(model, cfg)
     trained = data_parallel(model, device) if torch.distributed.is_initialized() else model
     paths = resolve_paths(cfg)
@@ -257,27 +333,36 @@ def _fit_job(job: dict, device, rank: int, world: int) -> dict:
                       for split in ("train", "val")}}
 
 
-JOBS = {"batchnorm": _batchnorm_job, "steps": _steps_job, "fit": _fit_job}
+JOBS = {"batchnorm": _batchnorm_job, "mlp": _mlp_job, "steps": _steps_job, "fit": _fit_job}
 
 
 def run_rank(spec: dict) -> None:
     """One rank of a checked run, in a process the ``MDE_DIST_*`` variables
     place. ``spec``: ``world``, ``device`` (``cpu``, ``cuda`` or ``cuda:N``),
     ``out`` (a directory), and ``jobs``, each a dict with its ``name`` and
-    ``mode``:
+    ``mode``, and ``model_axis``, its T (default 1;
+    ``distributed.set_model_axis`` splits the world into (data, model) for
+    the job):
 
     - ``batchnorm``: ``input``, a file of x, dy and the layer's state_dict,
-      and ``layer`` ("batchnorm2d" or "linear_bn");
+      ``layer`` ("batchnorm2d" or "linear_bn") and ``over_world``;
+    - ``mlp``: ``input``, a file of a ViT ``Mlp``'s state_dict, x and dy;
     - ``steps``: ``model`` (a pickled module this program saved), ``sets``
       (``--set`` overrides of the default config), ``batches`` (a file of
       global batches, dicts of ``rgb``/``depth`` arrays: uint8 and raw
       depth, or with ``given`` already through the pipeline), ``accum``,
       ``generators`` ((seed, epoch, iteration) a step), ``float64`` (the
       model and the pipeline's outputs), ``plain`` (the kernels' plain
-      versions, which a float64 model on a card needs), ``grads``;
+      versions, which a float64 model on a card needs), ``grads``,
+      ``restore`` (a sharded checkpoint's directory, restored before the
+      steps) and ``save_sharded`` (a directory, written after them);
       records the losses, each step's ms and kernel launches, each tensor's
-      norm after the steps and (rank 0) the state_dict in float32, less the
-      frozen parameters, and, with ``grads``, the last step's gradients;
+      norm after the steps (of the full grammar, gathered over the model
+      group), the bytes of the parameters the rank holds beside the
+      layout's prediction, the sharded keys, and (rank 0) the state_dict in
+      float32, less the frozen parameters, with ``grads`` the last step's
+      gradients gathered, and with ``restore`` the state and the optimizer's
+      state right after the restore and after the steps;
     - ``fit``: ``model`` and ``sets`` (with the data and result paths);
       records the history, the predictions written and the metrics.
 
@@ -295,7 +380,10 @@ def run_rank(spec: dict) -> None:
     backend = torch.distributed.get_backend() if torch.distributed.is_initialized() else None
     try:
         for job in spec["jobs"]:
+            distributed.set_model_axis(int(job.get("model_axis", 1)))
             out = {"rank": rank, "world": world, "device": str(device), "backend": backend,
+                   "data_index": distributed.data_index(),
+                   "model_index": distributed.model_index(),
                    **JOBS[job["mode"]](job, device, rank, world)}
             torch.save(out, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
             distributed.barrier(job["name"])

@@ -1,14 +1,15 @@
-"""The data-parallel world and its row layout (port of the data axis of
-mde_tpu/parallel/mesh.py).
+"""The (data, model) world, its row layout and the tensor-parallel layout
+(port of mde_tpu/parallel/mesh.py).
 
 The JAX package trains over a ('data', 'model') mesh under GSPMD, which
-inserts the gradient all-reduce and the global BatchNorm statistics itself.
-The port runs one process per card on the data axis: ``data_world`` picks W
-as ``make_training_mesh`` picks the data axis, ``local_rows`` says which rows
-of a global batch a process holds (the stand-in for ``shard_batch``), and
-``data_parallel`` wraps the model in ``DistributedDataParallel`` with the
-cross-process BatchNorm. The model axis (tensor parallelism) is not ported:
-``framework.mesh.model > 1`` raises (ROADMAP, Queue 1, item 5b).
+inserts the gradient all-reduce, the global BatchNorm statistics and the
+Megatron collectives itself. The port runs one process per card: ``mesh_world``
+picks (data, model) as ``make_training_mesh`` picks the mesh, ``local_rows``
+says which rows of a global batch a data index holds (the stand-in for
+``shard_batch``), ``tp_layout`` is ``tp_param_spec`` on the port's
+state_dict (``parallel.tensor`` swaps the layers it shards), and
+``data_parallel`` wraps the model in ``DistributedDataParallel`` over the
+data group with the cross-process BatchNorm.
 """
 
 from __future__ import annotations
@@ -34,34 +35,76 @@ def clamp_data_axis(requested: int, batch_size: int, n_devices: int) -> int:
     return max(requested, 1)
 
 
-def data_world(cfg, device: str) -> int:
-    """W, the data-parallel processes of a training run: ``framework.mesh.data``
-    (-1: every visible card) clamped to divide ``training.batch_size``, as
-    ``make_training_mesh`` clamps the data axis. ``--device cuda`` counts the
+# Families whose attention carries per-head tables (relative-position bias
+# tables, logit scales) that the model axis would have to slice with the
+# heads: not sharded yet (ROADMAP.md, Queue 1, item 5b-zoo).
+TP_PENDING_FAMILIES = ("beit", "swin", "next_vit")
+
+
+def _check_model_axis(model_cfg) -> None:
+    """Raise for a config whose model the model axis cannot shard yet: a
+    DPT of ``models.model_loader`` on a BEiT, Swin or Next-ViT trunk."""
+    from ..models.dpt import _family
+    from ..models.model_loader import DEFAULT_MODELS
+
+    spec = DEFAULT_MODELS.get(str(model_cfg.get("model_type", "")), (None,))[0]
+    family = _family(spec["backbone"]) if isinstance(spec, dict) else None
+    if family in TP_PENDING_FAMILIES:
+        raise ValueError(
+            f"framework.mesh.model > 1: tensor parallelism does not shard {family}'s attention "
+            "yet, whose per-head tables must be sliced with the heads (ROADMAP.md, Queue 1, "
+            "item 5b-zoo)")
+
+
+def mesh_world(cfg, device: str) -> tuple[int, int]:
+    """(data, model): the data-parallel ranks and T, the ranks of one data
+    index that share a model (``framework.mesh.model``), of a training run.
+
+    As ``make_training_mesh`` (mde_tpu/parallel/mesh.py:78-85): ``usable`` =
+    cards // model, and ``framework.mesh.data`` (-1: all of them) is
+    clamped to divide ``training.batch_size``. ``--device cuda`` counts the
     visible cards; on the CPU, or with one named card (``cuda:N``, ranks
-    sharing it), processes are not bounded by cards and -1 means one.
-    Under a launcher W is its process count, which the config must allow.
+    sharing it), processes are not bounded by cards and -1 means one. Under
+    a launcher the world is its process count, which the config must allow.
+    A model whose attention the model axis cannot shard raises
+    (``TP_PENDING_FAMILIES``).
     """
     mesh = cfg.framework.get("mesh", {})
-    if int(mesh.get("model", 1)) > 1:
-        raise ValueError(
-            f"framework.mesh.model={mesh.get('model')}: tensor parallelism is not ported to "
-            "mde_tpu_torch yet (ROADMAP.md, Queue 1, item 5b)")
+    model = int(mesh.get("model", 1))
+    if model < 1:
+        raise ValueError(f"framework.mesh.model={model}: at least 1")
+    if model > 1:
+        _check_model_axis(cfg.model)
     requested = int(mesh.get("data", -1))
     batch_size = int(cfg.training.batch_size)
     if dist.is_multiprocess():
         w = dist.process_count()
-        if requested not in (-1, w) or batch_size % w:
-            raise ValueError(f"{w} processes were launched: framework.mesh.data must be -1 or "
-                             f"{w} (it is {requested}) and training.batch_size must split over "
-                             f"them (it is {batch_size})")
-        return w
+        d = w // model
+        if w % model or requested not in (-1, d) or batch_size % d:
+            raise ValueError(f"{w} processes were launched: framework.mesh.model ({model}) must "
+                             f"divide them, framework.mesh.data must be -1 or {d} (it is "
+                             f"{requested}) and training.batch_size must split over {d} (it is "
+                             f"{batch_size})")
+        return d, model
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        n = torch.cuda.device_count()
+        usable = torch.cuda.device_count() // model
+        if usable < 1:
+            raise ValueError(f"framework.mesh.model={model} needs {model} cards, "
+                             f"{torch.cuda.device_count()} visible")
     else:
-        n = max(requested, 1)
-    return clamp_data_axis(requested, batch_size, n)
+        usable = max(requested, 1)
+    return clamp_data_axis(requested, batch_size, usable), model
+
+
+def data_world(cfg, device: str) -> int:
+    """W of a data-parallel run (``mesh_world``'s data axis) for the
+    examples, which train on the data axis alone."""
+    data, model = mesh_world(cfg, device)
+    if model > 1:
+        raise ValueError(f"framework.mesh.model={model}: the examples train on the data axis "
+                         "alone; the training CLI (mde_tpu_torch.tools.main) takes the model axis")
+    return data
 
 
 def local_rows(global_rows: int, accum_steps: int, process: int, count: int) -> Optional[np.ndarray]:
@@ -88,7 +131,9 @@ def local_rows(global_rows: int, accum_steps: int, process: int, count: int) -> 
 
 def data_parallel(model: torch.nn.Module, device: torch.device):
     """``model`` with its BatchNorm layers made cross-process (in place, the
-    same parameters and buffers), wrapped in ``DistributedDataParallel``.
+    same parameters and buffers), wrapped in ``DistributedDataParallel`` over
+    the data group: the gradient average and DDP's first broadcast of the
+    parameters stay among the ranks that hold the same share of them.
     Buffers are not broadcast a step (every rank computes the same running
     statistics); the model's dead parameters (its ``DEAD_KEY_PREFIXES``:
     modules no forward reads) are left out of the gradient reduction."""
@@ -105,7 +150,7 @@ def data_parallel(model: torch.nn.Module, device: torch.device):
     card = None
     if device.type == "cuda":
         card = [device.index if device.index is not None else torch.cuda.current_device()]
-    return DDP(model, device_ids=card, **no_broadcast)
+    return DDP(model, device_ids=card, process_group=dist.data_group(), **no_broadcast)
 
 
 def unwrap(model: torch.nn.Module) -> torch.nn.Module:
@@ -113,3 +158,44 @@ def unwrap(model: torch.nn.Module) -> torch.nn.Module:
     from torch.nn.parallel import DistributedDataParallel as DDP
 
     return model.module if isinstance(model, DDP) else model
+
+
+# ------------------------------------------------------------ tensor parallel
+#
+# tp_param_spec's rule (mde_tpu/parallel/mesh.py:193-257) on the port's
+# names: the Linear weights of 'qkv', 'fc1', 'q', 'k', 'v' are column-parallel
+# (output features split) with their biases, those of 'proj' and 'fc2'
+# row-parallel (input features split; the bias whole); a dim that does not
+# divide by T stays replicated, and so does everything else.
+
+TP_COLUMN = {"qkv", "fc1", "q", "k", "v"}
+TP_ROW = {"proj", "fc2"}
+
+
+def tp_layout(model: torch.nn.Module, size: int) -> dict:
+    """Each key of ``model``'s (full) state_dict: "column", "row" or
+    "replicated" over ``size`` model ranks.
+
+    One rule beyond ``tp_param_spec``'s: a Linear of a module with
+    ``num_heads`` (an attention) is sharded only where the heads divide by
+    T, so that each rank holds whole heads; elsewhere the attention stays
+    replicated. The math is the same either way: GSPMD may split a qkv
+    kernel between heads, and its collectives then give the same function.
+    """
+    modules = dict(model.named_modules())
+    layout = {}
+    for key, t in model.state_dict(keep_vars=True).items():
+        parts = key.split(".")
+        leaf, mod = parts[-1], (parts[-2] if len(parts) > 1 else "")
+        kind = "replicated"
+        if leaf == "weight" and t.dim() == 2 and mod in TP_COLUMN and t.shape[0] % size == 0:
+            kind = "column"
+        elif leaf == "weight" and t.dim() == 2 and mod in TP_ROW and t.shape[1] % size == 0:
+            kind = "row"
+        elif leaf == "bias" and t.dim() == 1 and mod in TP_COLUMN and t.shape[0] % size == 0:
+            kind = "column"
+        heads = getattr(modules.get(".".join(parts[:-2])), "num_heads", None)
+        if kind != "replicated" and heads is not None and heads % size:
+            kind = "replicated"
+        layout[key] = kind
+    return layout

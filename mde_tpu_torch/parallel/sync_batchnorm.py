@@ -6,7 +6,7 @@ it refuses CPU tensors, where the tests run, and its all-gathers are not
 what gloo offers for CUDA tensors. This one is a ``torch.autograd.Function``
 in plain PyTorch on ``all_reduce`` alone:
 
-- forward: two all-reduces, summed in float64 (the input computes in
+- forward: two all-reduces over the data group, summed in float64 (the input computes in
   float32, or float64 if it is float64): the local sum of x with the element
   count, which gives the global mean, then the local sum of (x - mean)^2,
   which gives the biased variance over the global n. One pass of the sums
@@ -14,7 +14,10 @@ in plain PyTorch on ``all_reduce`` alone:
   the variance of a channel whose mean is far from 0 (0.1% at a mean of
   100 standard deviations, in float32). The running variance takes torch's
   unbiased correction n / (n - 1) with the global n, as ``nn.BatchNorm2d``
-  does in one process;
+  does in one process. Under tensor parallelism the model ranks of a data
+  index hold the same rows: a reduction over the world would count each row
+  T times, which leaves the mean and the variance as they are but makes the
+  running variance's n / (n - 1) that of T n rows;
 - backward: the sums of dy and dy * x_hat go out in one all-reduce; the
   weight and bias gradients are this process's own sums (the
   ``DistributedDataParallel`` reduction adds the processes' shares).
@@ -37,6 +40,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from .distributed import data_group
+
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     """float64 stays float64; every other type computes in float32."""
@@ -45,7 +50,7 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
 
 class _SyncBatchNormFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group):
         xf = x.to(_compute_dtype(x))
         c = xf.shape[1]
         dims = [0] + list(range(2, xf.dim()))
@@ -56,17 +61,17 @@ class _SyncBatchNormFunction(torch.autograd.Function):
         local = torch.cat([xf.sum(dims, dtype=torch.float64),
                            torch.full((1,), xf.numel() // c, dtype=torch.float64,
                                       device=x.device)])
-        dist.all_reduce(local)
+        dist.all_reduce(local, group=group)
         n = local[c]
         centered = xf - (local[:c] / n).to(xf.dtype).view(shape)
         sq = (centered * centered).sum(dims, dtype=torch.float64)
-        dist.all_reduce(sq)
+        dist.all_reduce(sq, group=group)
         mean, var = (local[:c] / n).to(xf.dtype), (sq / n).to(xf.dtype)
         invstd = torch.rsqrt(var + eps)
         x_hat = centered * invstd.view(shape)
         y = x_hat * weight.to(xf.dtype).view(shape) + bias.to(xf.dtype).view(shape)
         ctx.save_for_backward(x_hat, weight, invstd, n)
-        ctx.input_dtype = x.dtype
+        ctx.input_dtype, ctx.group = x.dtype, group
         ctx.mark_non_differentiable(mean, var, n)
         return y.to(x.dtype), mean, var, n
 
@@ -82,11 +87,11 @@ class _SyncBatchNormFunction(torch.autograd.Function):
         # this process's shares, copied before the all-reduce sums in place
         grad_bias = packed[:c].to(weight.dtype, copy=True)
         grad_weight = packed[c:].to(weight.dtype, copy=True)
-        dist.all_reduce(packed)
+        dist.all_reduce(packed, group=ctx.group)
         mean_dy = (packed[:c] / n).to(x_hat.dtype).view(shape)
         mean_dy_xhat = (packed[c:] / n).to(x_hat.dtype).view(shape)
         dx = (dyf - mean_dy - x_hat * mean_dy_xhat) * (weight.to(x_hat.dtype) * invstd).view(shape)
-        return dx.to(ctx.input_dtype), grad_weight, grad_bias, None
+        return dx.to(ctx.input_dtype), grad_weight, grad_bias, None, None
 
 
 class _SyncForward:
@@ -100,7 +105,8 @@ class _SyncForward:
         if not (self.training and self.sync and dist.is_initialized()):
             return super().forward(x)
         self._check_input_dim(x)
-        y, mean, var, n = _SyncBatchNormFunction.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var, n = _SyncBatchNormFunction.apply(x, self.weight, self.bias, self.eps,
+                                                       data_group())
         if self.track_running_stats:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

@@ -111,13 +111,14 @@ def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
     """Train/val loaders over the 85/15 ``split_train_val`` of the train list,
     and a test loader when the test list exists; batches land on ``device``
     (pinned, non-blocking copies on a CUDA device) or stay numpy (None).
-    Under W processes each loader yields this process's rows (the train
-    loader in the layout of ``framework.grad_accum_steps`` microbatches)."""
+    Under W data-parallel ranks each loader yields this rank's data index's
+    rows (the train loader in the layout of ``framework.grad_accum_steps``
+    microbatches); the model ranks of a data index read the same rows."""
     fw = cfg.framework
     bs = int(cfg.training.batch_size)
     workers = int(fw.num_workers)
-    shard = ((distributed.process_index(), distributed.process_count())
-             if distributed.is_multiprocess() else None)
+    shard = ((distributed.data_index(), distributed.data_count())
+             if distributed.data_count() > 1 else None)
     loaders = {}
     if train:
         full = DepthDataset(paths["train_dir"], paths["train_list"], has_gt=True)

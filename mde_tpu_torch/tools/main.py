@@ -13,17 +13,25 @@ best checkpoint and wandb-schema logging, the optional 7-metric evaluation,
 then the 426x560 test predictions. ``--device cuda`` without a card fails
 rather than training on the CPU.
 
-Data parallel, as the JAX tool's ('data', 'model') mesh on its data axis:
-W = ``framework.mesh.data`` (-1: every visible card) clamped to divide
-``training.batch_size`` (``parallel.mesh.data_world``). With W > 1 and no
-launcher in the environment, the tool starts W processes of itself, one a
-card over NCCL (gloo on the CPU, or where ``MDE_DIST_BACKEND=gloo`` names
-it, as for ranks that share one named card ``--device cuda:N``), waits for
-them and exits non-zero if any fails. Under torchrun or the ``MDE_DIST_*``
-variables each process joins instead. Each rank trains under
-``DistributedDataParallel`` with the cross-process BatchNorm on its rows of
-every batch; rank 0 alone logs and writes the checkpoint. The model axis
-(``framework.mesh.model > 1``) is not ported (ROADMAP, Queue 1, item 5b).
+The world is the JAX tool's ('data', 'model') mesh (``parallel.mesh.
+mesh_world``): T = ``framework.mesh.model`` ranks share a model, and the
+data axis ``framework.mesh.data`` (-1: every usable card, the visible cards
+over T) is clamped to divide ``training.batch_size``. With more than one
+rank and no launcher in the environment, the tool starts data x T processes
+of itself, one a card over NCCL (gloo on the CPU, or where
+``MDE_DIST_BACKEND=gloo`` names it, as for ranks that share one named card
+``--device cuda:N``), waits for them and exits non-zero if any fails. Under
+torchrun or the ``MDE_DIST_*`` variables each process joins instead. Rank p
+is data index p // T and model index p % T. At T > 1 each rank holds a
+Megatron share of every layer ``tp_param_spec`` shards
+(``parallel.tensor.tensor_parallel``: the ViT and DINOv2 attention and MLP,
+the flagship's cross-attention); a model the rule leaves whole (the CNNs,
+LeViT) runs replicated on the model ranks, and a BEiT, Swin or Next-ViT
+trunk raises (ROADMAP, Queue 1, item 5b-zoo). Each rank trains under
+``DistributedDataParallel`` over its data group with the cross-process
+BatchNorm on its data index's rows of every batch; rank 0 alone logs and
+writes the checkpoint, the full reference grammar gathered from the model
+ranks, which loads into one process.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ import time
 import torch
 
 from ..parallel import distributed, launch
-from ..parallel.mesh import data_parallel, data_world
-from ..train.checkpoint import checkpoint_path, load_state_dict, load_training_checkpoint
+from ..parallel.mesh import data_parallel, mesh_world
+from ..parallel.tensor import tensor_parallel
+from ..train.checkpoint import (checkpoint_path, load_optimizer_state, load_state_dict,
+                                load_training_checkpoint)
 from ..train.logging import ExperimentLogger
 from ..train.trainer import evaluate_full_suite, fit, generate_test_predictions, make_optimizer
 from .common import (bootstrap_model, build_loaders, parse_config, resolve_paths,
@@ -49,14 +59,16 @@ def main(argv=None) -> dict | None:
     cfg, args = parse_config("Train a depth model (PyTorch port)", argv=argv)
     set_float32_precision()
     device = tool_device(args.device)
-    world = data_world(cfg, args.device)
+    data, model_ranks = mesh_world(cfg, args.device)
+    world = data * model_ranks
     if world > 1 and not distributed.is_multiprocess():
-        print(f"Starting {world} data-parallel processes")
+        print(f"Starting {world} processes: (data, model) = ({data}, {model_ranks})")
         rc = launch.spawn("mde_tpu_torch.tools.main", sys.argv[1:] if argv is None else argv,
                           world, cpu=device.type == "cpu")
         if rc:
-            raise SystemExit(f"a data-parallel process exited with {rc}")
+            raise SystemExit(f"a rank exited with {rc}")
         return None
+    distributed.set_model_axis(model_ranks)
     device = distributed.rank_device(args.device)
     paths = resolve_paths(cfg)
     os.makedirs(paths["results_dir"], exist_ok=True)
@@ -86,14 +98,17 @@ def main(argv=None) -> dict | None:
     )
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-          + (f", rank {distributed.process_index()} of {world} "
-             f"({torch.distributed.get_backend()})" if world > 1 else ""))
+          + (f", rank {distributed.process_index()} of {world} (data {distributed.data_index()}"
+             f" of {data}, model {distributed.model_index()} of {model_ranks}; "
+             f"{torch.distributed.get_backend()})" if world > 1 else ""))
 
     loaders = build_loaders(cfg, paths, train=True, device=device)
     print(f"Train size: {loaders['train'].num_samples}, "
           f"Validation size: {loaders['val'].num_samples}")
 
     model, _ = bootstrap_model(cfg, device)
+    if model_ranks > 1:
+        tensor_parallel(model, model_ranks)
     optimizer = make_optimizer(model, cfg)
     start_epoch = int(cfg.training.resume_training.resume_from_epoch) if resume else 0
     es_state = {}
@@ -104,7 +119,7 @@ def main(argv=None) -> dict | None:
         payload = load_training_checkpoint(ckpt)
         load_state_dict(model, payload["model_state_dict"])
         try:
-            optimizer.load_state_dict(payload["optimizer_state_dict"])
+            load_optimizer_state(model, optimizer, payload["optimizer_state_dict"])
         except (KeyError, ValueError):
             print("Warning: optimizer state in checkpoint is incompatible; reinitialized.")
         es_state = {

@@ -38,6 +38,20 @@ batch's, the same on every process, so a step of W processes is the
 one-process step on the global batch, and every process takes the same
 early-stopping branch. Process 0 alone logs and writes the checkpoint,
 then a barrier; every process reloads the best weights.
+
+Tensor parallelism (``framework.mesh.model`` = T > 1): the world is (data,
+model), and the model comes through ``parallel.tensor.tensor_parallel``
+(each rank a share of the sharded layers) before ``data_parallel``. Rows,
+loss and metric sums, BatchNorm statistics and the gradient average go over
+the data group (W above is the data-parallel count); the T model ranks of a
+data index hold the same rows and compute the same loss (its model rank 0's
+numbers on each, and rank 0's copy of the replicated parameters' gradients
+and of the BatchNorm statistics: ``parallel.tensor.sync_replicated``).
+Every rank calls
+the checkpoint writer (the shares are gathered) and runs every forward (its
+model peers wait on its collectives); process 0 (data 0, model 0) writes
+the checkpoint and the logs, and model rank 0 of each data index its
+predictions.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from ..ops.kernels import preprocess_u8_plain, si_loss_sums, si_loss_sums_plain
 from ..ops.resize import resize_bilinear
 from ..parallel import distributed as dist
 from ..parallel.mesh import unwrap
+from ..parallel.tensor import from_model_rank0, sync_replicated
 from ..parallel.sync_batchnorm import local_statistics
 from .checkpoint import (checkpoint_path, load_state_dict, load_training_checkpoint,
                          save_training_checkpoint)
@@ -158,7 +173,7 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = F
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
         m = b // accum_steps
-        world, rank = dist.process_count(), dist.process_index()
+        world, rank = dist.data_count(), dist.data_index()
         sharded = world > 1 and not replicated
         rows = (rank * m, (rank + 1) * m, world * m) if sharded else None
         # each process's backward is of the global loss through its rows;
@@ -174,8 +189,10 @@ def make_train_step(model, cfg, optimizer, accum_steps: int = 1, plain: bool = F
                     loss, parts = forward_backward(model, cfg, rgb, depth, dtype, plain=plain,
                                                    scale=scale, sharded=sharded)
                 metrics.append({"loss": loss, **parts})
+        sync_replicated(module)  # the model ranks' replicated parameters stay identical
         optimizer.step()
-        return {k: torch.stack([m_[k] for m_ in metrics]).mean() for k in metrics[0]}
+        return from_model_rank0({k: torch.stack([m_[k] for m_ in metrics]).mean()
+                                 for k in metrics[0]})
 
     return step
 
@@ -207,8 +224,8 @@ def make_eval_step(model, cfg) -> Callable:
         with torch.inference_mode():
             rgb, depth, pred = _eval_forward(model, cfg, rgb_u8, depth_raw)
             total, parts = combined_loss(pred, depth, cfg, rgb=rgb,
-                                         sharded=dist.is_multiprocess() and not replicated)
-        return {"loss": total, **parts}
+                                         sharded=dist.data_count() > 1 and not replicated)
+        return from_model_rank0({"loss": total, **parts})
 
     return step
 
@@ -224,7 +241,8 @@ def make_metric_step(model, cfg) -> Callable:
         model.eval()
         with torch.inference_mode():
             _, depth, pred = _eval_forward(model, cfg, rgb_u8, depth_raw)
-            return evaluation_metrics(pred, depth, base_thres=base, n_delta=n_delta)
+            return from_model_rank0(evaluation_metrics(pred, depth, base_thres=base,
+                                                       n_delta=n_delta))
 
     return step
 
@@ -270,8 +288,8 @@ def _global_rows(batch: dict) -> int:
     ``HostLoader(process_shard=...)`` contract). Losses and metrics are
     global-batch means, so epoch averages weight by global rows."""
     n = int(batch["rgb"].shape[0])
-    if dist.is_multiprocess() and not batch.get("_replicated", False):
-        n *= dist.process_count()
+    if not batch.get("_replicated", False):
+        n *= dist.data_count()
     return n
 
 
@@ -394,13 +412,12 @@ def fit(model, cfg, optimizer, train_loader, val_loader, results_dir: str,
         # ---- early stopping + best checkpoint (src/main.py:200-230) ----
         if val_loss < best_val - min_delta:
             best_val, best_epoch, counter = val_loss, epoch, 0
-            if dist.is_primary():
-                save_training_checkpoint(
-                    ckpt_path, unwrap(model), optimizer, epoch=epoch + 1,
-                    best_val_loss=best_val, best_epoch=best_epoch,
-                    early_stopping_counter=counter, train_loss=train_loss, val_loss=val_loss,
-                    config={"model_name": model_name, "num_epochs": num_epochs,
-                            "early_stopping": {"patience": patience, "min_delta": min_delta}})
+            save_training_checkpoint(  # process 0 writes; a tensor-parallel model gathers
+                ckpt_path, unwrap(model), optimizer, epoch=epoch + 1,
+                best_val_loss=best_val, best_epoch=best_epoch,
+                early_stopping_counter=counter, train_loss=train_loss, val_loss=val_loss,
+                config={"model_name": model_name, "num_epochs": num_epochs,
+                        "early_stopping": {"patience": patience, "min_delta": min_delta}})
             dist.barrier("best_checkpoint_saved")
             print(f"New best model saved at epoch {epoch + 1} with validation loss: {val_loss:.4f}")
         else:
@@ -443,8 +460,9 @@ def evaluate(model, cfg, loader, n_samples: Optional[int] = None) -> dict:
         bsz = _global_rows(batch)
         m = metric_step(_on(device, batch, "rgb"), _on(device, batch, "depth"))
         values = torch.stack(list(m.values())).tolist()
-        if dist.is_multiprocess() and not batch.get("_replicated", False):
-            values = [v / dist.process_count() for v in dist.all_reduce_floats(values, device)]
+        if dist.data_count() > 1 and not batch.get("_replicated", False):
+            values = [v / dist.data_count()
+                      for v in dist.all_reduce_floats(values, device, dist.data_group())]
         m = dict(zip(m, values))
         for k, v in m.items():
             totals[k] = totals.get(k, 0.0) + v * bsz
@@ -473,8 +491,8 @@ def evaluate_full_suite(model, cfg, loader) -> dict:
             pred = resize_bilinear(pred, depth.shape[-2:], align_corners=True)
             out = full_metric_suite(pred, depth)
         values = torch.stack([v.double() for v in out.values()]).tolist()
-        if dist.is_multiprocess() and not batch.get("_replicated", False):
-            values = dist.all_reduce_floats(values, device)
+        if dist.data_count() > 1 and not batch.get("_replicated", False):
+            values = dist.all_reduce_floats(values, device, dist.data_group())
         for k, v in zip(out, values):
             sums[k] = sums.get(k, 0.0) + v
         n += _global_rows(batch)
@@ -494,15 +512,19 @@ def generate_test_predictions(model, cfg, loader, predictions_dir: str) -> int:
     """Save one native-size .npy prediction an image, named by the second
     list-file token (src/util.py:292-328). Returns the number this process
     wrote: under W processes each writes its own rows, and process 0 alone a
-    batch that runs replicated (mde_tpu/train/trainer.py:644-677)."""
+    batch that runs replicated (mde_tpu/train/trainer.py:644-677). Under
+    tensor parallelism the model ranks of a data index predict together and
+    its model rank 0 writes."""
     os.makedirs(predictions_dir, exist_ok=True)
     predict_step = make_predict_step(unwrap(model), cfg)
     device = _device(model)
     written = 0
     for batch in loader:
-        if batch.get("_replicated", False) and not dist.is_primary():
-            continue
+        if batch.get("_replicated", False) and dist.data_index() != 0:
+            continue  # data index 0's ranks predict it
         preds = predict_step(_on(device, batch, "rgb")).cpu().numpy()
+        if dist.model_index() != 0:
+            continue  # its model rank 0 writes
         for i, name in enumerate(batch["names"]):
             np.save(os.path.join(predictions_dir, name.split(" ")[1]), preds[i])
             written += 1

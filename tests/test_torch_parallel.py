@@ -8,8 +8,10 @@ JAX package's mesh, on the CPU over gloo.
   and ``_replicated`` tags a process. With two accumulation steps, each
   microbatch's rows over the processes, in order, are the JAX batch's
   microbatch (``mde_tpu/train/trainer.py:226-231``).
-- ``data_world`` and ``initialize_from_env``: the world a config and a
-  launcher give, the model axis refused.
+- ``mesh_world`` (and the examples' ``data_world``) and
+  ``initialize_from_env``: the world a config and a launcher give, (data,
+  model) as ``make_training_mesh`` gives it, the model axis refused for a
+  BEiT or Swin trunk (ROADMAP item 5b-zoo).
 - Two gloo processes (``mde_tpu_torch.parallel.launch``: workers that import
   nothing of the JAX package), started once for the module:
   (a) the cross-process BatchNorm on 2 + 2 rows against ``nn.BatchNorm2d``
@@ -185,18 +187,41 @@ def test_accumulation_layout_holds_each_microbatch_share(dataset_root, batch, co
 
 
 def test_data_world_clamps_and_refuses_the_model_axis(monkeypatch):
+    """``mesh_world``'s contract (it took ``data_world``'s place): the data
+    axis clamped as before and (data, model) as ``make_training_mesh`` gives
+    them, usable cards = cards // model; the model axis taken for the
+    flagship and refused, naming ROADMAP item 5b-zoo, for a BEiT or a Swin
+    trunk."""
     cfg = config.defaults()
     cfg.training.batch_size = 6
     for requested, device, want in ((-1, "cpu", 1), (4, "cpu", 3), (2, "cuda:0", 2),
                                     (1, "cpu", 1)):
         cfg.framework.mesh.data = requested
-        assert mesh.data_world(cfg, device) == want, (requested, device)
+        assert mesh.mesh_world(cfg, device) == (want, 1), (requested, device)
+        assert mesh.data_world(cfg, device) == want
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(jax, "devices", lambda: list(range(4)))
     cfg.framework.mesh.data = -1
-    assert mesh.data_world(cfg, "cuda") == 3
+    assert mesh.mesh_world(cfg, "cuda") == (3, 1)
+    jcfg = jax_config.defaults()
+    jcfg.framework.mesh.data = -1
+    for model, batch in ((2, 6), (2, 4), (4, 6)):
+        cfg.framework.mesh.model = jcfg.framework.mesh.model = model
+        cfg.training.batch_size = batch
+        with monkeypatch.context() as m:
+            m.setattr("mde_tpu.parallel.mesh.make_mesh", lambda data, model: (data, model))
+            from mde_tpu.parallel.mesh import make_training_mesh
+
+            want = make_training_mesh(jcfg, batch)
+        assert mesh.mesh_world(cfg, "cuda") == want, (model, batch)
     cfg.framework.mesh.model = 2
-    with pytest.raises(ValueError, match="item 5b"):
+    assert mesh.mesh_world(cfg, "cpu") == (1, 2)
+    with pytest.raises(ValueError, match="examples"):
         mesh.data_world(cfg, "cpu")
+    for name in ("dpt_beit_base_384", "dpt_swin2_tiny_256"):
+        cfg.model.model_type = name
+        with pytest.raises(ValueError, match="item 5b-zoo"):
+            mesh.mesh_world(cfg, "cpu")
 
 
 @pytest.mark.parametrize("env,want", [
