@@ -8,6 +8,7 @@ paths on one CUDA card.
     python3 chip_smoke.py --tp-only            # the tensor_parallel phase alone
     python3 chip_smoke.py --zoo-only           # the zoo phase alone
     python3 chip_smoke.py --export-only        # the zoo's export phase alone
+    python3 chip_smoke.py --serve-world-only   # the serve_world phase alone
 
 Two models, each at full width with random weights from a seed: the flagship
 (MiDaS-small + DINOv2 ViT-S/14 branch, 448x576) and Depth-Anything-V2-S
@@ -125,13 +126,15 @@ Phases, each printing JSON lines:
               frames, the replies and the kernels' predict step against
               the plain-version one, the plain step against itself (the
               noise witness), K3 and K4 swapped for their plain versions
-              one at a time, host and CUDA-event ms by bucket, K3's eval
-              form once a predict call. Train: two float32 and two bf16
-              train steps at batch 4 against the same steps with
-              plain=True on the same weights and draws (losses, gradient
-              rel-L2, CUDA-event ms, peak MiB, launches a step: K3's train
-              form and K2's forward and backward once), and in float32 the
-              plain step against itself. For ``ZOO_CLI`` the training CLI
+              one at a time, host and CUDA-event ms by bucket (the
+              loader's: 3 reps, no profile, no witness or swaps), K3's eval
+              form once a predict call. Train: two
+              float32 and two bf16 train steps at batch 4 against the same
+              steps with plain=True on the same weights and draws (losses,
+              gradient rel-L2, CUDA-event ms, peak MiB, launches a step:
+              K3's train form and K2's forward and backward once), and in
+              float32 the plain step against itself (not the loader's).
+              For ``ZOO_CLI`` the training CLI
               for one epoch and the evaluation tool on its checkpoint.
               Path ``zoo_<model>``: all of it.
  10. export_zoo the factory's seven through the export CLI (--max-batch 2) on
@@ -191,6 +194,33 @@ Phases, each printing JSON lines:
               into one process whose predictions equal the ranks'. K1 and
               K4 run on a rank's heads (the kernels phase times them there:
               TP_CASES). Paths ``tp_flagship``, ``tp_da2``.
+ 14. serve_world the server and the offline tools over (data, model)
+              worlds: the serving worlds in a thread beside phase 10
+              (beside phases 11-13 the ranks of all three ran the card out
+              of memory), the tools in another beside phase 9. Serving: the
+              serve phase's weights at --max-batch 8. First, in this process: the
+              one-process predict step on groups of 1, 2, 4 and 8 frames at
+              426x560 (each group fills its bucket), and the same groups
+              through build_service and the HTTP handler (the yardstick).
+              Then ``python -m mde_tpu_torch.tools.serve`` started as a user
+              starts it (its launcher starts the ranks: one card a rank over
+              NCCL where the host has a card for each, else sharing card 0
+              over gloo) at SERVE_WORLDS: the flagship at (2, 1), (1, 2) and
+              (2, 2), DA-V2-S at (1, 2). Each group is posted twice at once
+              on connections opened first: every reply against the
+              one-process predict step within the serve phase's bound,
+              ``X-Batch-Size`` (a group split by the 50 ms window is posted
+              again, at most three times), the round trip ms by bucket; then
+              SIGTERM to the launcher: exit 0 and every rank's stop line,
+              whose steps and launches by bucket must be the replies' steps,
+              each K3 1, K1 1 (flagship) and K4 12 on the rank's heads where
+              the rank holds rows of the bucket (bucket 1 runs whole on data
+              index 0 when it does not split), none elsewhere. Tools: the
+              evaluation tool and the prediction dump on generated data and
+              the flagship's weights, each started as a user starts it, as
+              one process and at (2, 2): the world's metrics, files and CSV
+              rows against one process's. Paths ``serve_world_flagship``,
+              ``serve_world_da2``.
 Then a line with the whole script's seconds, a line with every kernel's
 numbers and its launches by path (a train path's are those of its checks
 (a), (b) and (c); a tools path's those of its three tools; an export path's
@@ -2130,43 +2160,44 @@ def phase_export(name: str, tmp: str, sets: tuple, ckpt: str) -> dict:
         cfg = model_cfg(name, *sets)
         ckpt = checkpoint_path(results, cfg.experiment.model_name)
         save_checkpoint(ckpt, make_model(name, cfg, bias=0.5))
-    archive = os.path.join(tmp, f"{name}.mdex")
-    argv = ["--device", "cuda", "--out", archive, "--max-batch", str(EXPORT_MAX_BATCH[name])]
-    argv += [a for x in sets for a in ("--set", x)]
-    reset_counts()
-    t0 = time.perf_counter()
-    meta = export_model.main(argv)
-    export_s = time.perf_counter() - t0
-    traced = read_counts()
-    check(not any(traced.values()), f"exporting launched kernels: {traced}")
-    with zipfile.ZipFile(archive) as zf:
-        sizes = {i.filename: i.file_size for i in zf.infolist()}
-    out = {"phase": "export", "model": name, "buckets": meta["batch_sizes"],
-           "cli_s": export_s, "export_s_by_bucket": meta["export_seconds"]["cuda"],
-           "archive_mb": os.path.getsize(archive) / 1e6,
-           "state_dict_mb": sizes[WEIGHTS_NAME] / 1e6,
-           "program_mb": {k: v / 1e6 for k, v in sizes.items() if k.endswith(".pt2")}}
-
-    # the live predict step on the same checkpoint
-    cfg = model_cfg(name, *sets)
-    live_model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
-    check(report is not None and not report["shape_mismatch"], "checkpoint reload failed")
-    live = make_predict_step(live_model, cfg)
-    native = tuple(int(s_) for s_ in cfg.framework.native_size)
-    buckets = list(meta["batch_sizes"])
-    want, live_counts = {}, {}
-    for b in buckets:
-        x = torch.from_numpy(export_inputs(b, native)).cuda()
-        reset_counts()
-        want[str(b)] = live(x).cpu().numpy()
-        live_counts[str(b)] = read_counts()
-        check((want[str(b)] > 0).mean() > 0.5 and float(want[str(b)].std()) > 0,
-              f"bucket {b}: the live depth map is clipped at the ReLU; nothing to compare")
-
-    # a fresh interpreter loads the archive and predicts
-    npz = os.path.join(tmp, f"{name}_exported.npz")
+    # a fresh interpreter, started first (its start overlaps the export and
+    # the live step), loads the archive and predicts
     proc = start_export_child(tmp)
     try:
+        archive = os.path.join(tmp, f"{name}.mdex")
+        argv = ["--device", "cuda", "--out", archive, "--max-batch", str(EXPORT_MAX_BATCH[name])]
+        argv += [a for x in sets for a in ("--set", x)]
+        reset_counts()
+        t0 = time.perf_counter()
+        meta = export_model.main(argv)
+        export_s = time.perf_counter() - t0
+        traced = read_counts()
+        check(not any(traced.values()), f"exporting launched kernels: {traced}")
+        with zipfile.ZipFile(archive) as zf:
+            sizes = {i.filename: i.file_size for i in zf.infolist()}
+        out = {"phase": "export", "model": name, "buckets": meta["batch_sizes"],
+               "cli_s": export_s, "export_s_by_bucket": meta["export_seconds"]["cuda"],
+               "archive_mb": os.path.getsize(archive) / 1e6,
+               "state_dict_mb": sizes[WEIGHTS_NAME] / 1e6,
+               "program_mb": {k: v / 1e6 for k, v in sizes.items() if k.endswith(".pt2")}}
+
+        # the live predict step on the same checkpoint
+        cfg = model_cfg(name, *sets)
+        live_model, report = bootstrap_model(cfg, "cuda", checkpoint=ckpt)
+        check(report is not None and not report["shape_mismatch"], "checkpoint reload failed")
+        live = make_predict_step(live_model, cfg)
+        native = tuple(int(s_) for s_ in cfg.framework.native_size)
+        buckets = list(meta["batch_sizes"])
+        want, live_counts = {}, {}
+        for b in buckets:
+            x = torch.from_numpy(export_inputs(b, native)).cuda()
+            reset_counts()
+            want[str(b)] = live(x).cpu().numpy()
+            live_counts[str(b)] = read_counts()
+            check((want[str(b)] > 0).mean() > 0.5 and float(want[str(b)].std()) > 0,
+                  f"bucket {b}: the live depth map is clipped at the ReLU; nothing to compare")
+
+        npz = os.path.join(tmp, f"{name}_exported.npz")
         feed_export_child(proc, archive, npz)
         (child,), child_s = finish_export_child(proc, tmp)
     finally:
@@ -2326,13 +2357,16 @@ def _top_kernels(fn, k: int = 5) -> dict:
             "top": [[e.key[:90], e.device_time_total / 1e3, e.count] for e in events[:k]]}
 
 
-def _zoo_serve(name: str, cfg, start_service) -> dict:
+def _zoo_serve(name: str, cfg, start_service, reps: int = 7, profile_buckets=(1, 2),
+               diagnostics: bool = True) -> dict:
     """``start_service()``'s DepthService (buckets 1 and 2) behind the HTTP
     server: two concurrent frames, the replies against the kernels' predict
-    step on the same frames, that step against ``plain=True``, the plain step
-    against itself (the noise witness), K3 and K4 swapped for their plain
-    versions one at a time, host and CUDA-event ms by bucket. K3's eval form
-    launches once a predict call."""
+    step on the same frames, that step against ``plain=True``; with
+    ``diagnostics`` the plain step against itself (the noise witness) and K3
+    and K4 swapped for their plain versions one at a time (reported, not
+    bounded); host and CUDA-event ms by bucket (``reps`` each), a profile's
+    top kernels at ``profile_buckets``. K3's eval form launches once a
+    predict call."""
     from http.server import ThreadingHTTPServer
 
     from mde_tpu_torch.tools.serve import make_handler
@@ -2360,25 +2394,27 @@ def _zoo_serve(name: str, cfg, start_service) -> dict:
         kernels = service._step(x).cpu().numpy()
         plain_step = make_predict_step(service.model, cfg, plain=True)
         plain = plain_step(x).cpu().numpy()
-        plain_again = plain_step(x).cpu().numpy()
         scale = float(np.abs(plain).max())
         out = {"start_s": start_s, "serve_s": serve_s, "launches": launches,
                "batch_sizes": sizes,
                "served_vs_predict_max_abs": float(np.abs(served - kernels).max()),
                "predict_vs_plain_max_abs": float(np.abs(kernels - plain).max()),
-               "plain_vs_plain_max_abs": float(np.abs(plain_again - plain).max()),
-               "k3_plain_vs_plain_max_abs": float(np.abs(
-                   _swapped_predict(service.model, cfg, x, True, False) - plain).max()),
-               "k4_plain_vs_plain_max_abs": float(np.abs(
-                   _swapped_predict(service.model, cfg, x, False, True) - plain).max()),
                "depth_max": scale, "depth_spread": float(plain.max() - plain.min()),
                "reserved_mib": torch.cuda.memory_reserved() / 2**20,
                "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0)}
+        if diagnostics:
+            out.update(
+                plain_vs_plain_max_abs=float(np.abs(plain_step(x).cpu().numpy() - plain).max()),
+                k3_plain_vs_plain_max_abs=float(np.abs(
+                    _swapped_predict(service.model, cfg, x, True, False) - plain).max()),
+                k4_plain_vs_plain_max_abs=float(np.abs(
+                    _swapped_predict(service.model, cfg, x, False, True) - plain).max()))
         for b in service.batcher.buckets:
             frames = np.zeros((b, h, w, 3), np.uint8)
-            times = _step_times(service._step, frames)
-            times["top_kernels"] = _top_kernels(
-                lambda: service._step(torch.from_numpy(frames).cuda()))
+            times = _step_times(service._step, frames, reps)
+            if b in profile_buckets:
+                times["top_kernels"] = _top_kernels(
+                    lambda: service._step(torch.from_numpy(frames).cuda()))
             for key, value in times.items():
                 out.setdefault(f"predict_{key}_by_bucket", {})[str(b)] = value
     finally:
@@ -2399,15 +2435,16 @@ def _zoo_serve(name: str, cfg, start_service) -> dict:
     return launches
 
 
-def _zoo_train(name: str, cfg16, cfg32, model) -> dict:
+def _zoo_train(name: str, cfg16, cfg32, model, witness: bool = True) -> dict:
     """Two train steps in float32 and two in bf16 at batch 4 through the
     kernels, each beside the same step through the plain versions on the same
     weights and draws: losses, the gradient's rel-L2 against the plain step,
-    CUDA-event ms, peak MiB and the kernels' launches. In float32 a second
-    plain step on its own copy of the weights and the same draws is the noise
-    witness: the plain step's gradient against itself (cuDNN's default
-    backward algorithms need not be deterministic). ``model`` is on the card,
-    its depth head comfortably positive."""
+    CUDA-event ms, peak MiB and the kernels' launches. With ``witness``, in
+    float32 a second plain step on its own copy of the weights and the same
+    draws is the noise witness (reported, not bounded): the plain step's
+    gradient against itself (cuDNN's default backward algorithms need not be
+    deterministic). ``model`` is on the card, its depth head comfortably
+    positive."""
     from mde_tpu_torch.data import synthetic
     from mde_tpu_torch.models.midas_semantics import CrossAttention
     from mde_tpu_torch.nn.vit import Attention
@@ -2430,7 +2467,7 @@ def _zoo_train(name: str, cfg16, cfg32, model) -> dict:
         steps = {"kernels": make_train_step(model, cfg, make_optimizer(model, cfg)),
                  "plain": make_train_step(copies["plain"], cfg,
                                           make_optimizer(copies["plain"], cfg), plain=True)}
-        if dt == "fp32":
+        if dt == "fp32" and witness:
             copies["plain_again"] = copy.deepcopy(model)
             steps["plain_again"] = make_train_step(
                 copies["plain_again"], cfg, make_optimizer(copies["plain_again"], cfg),
@@ -2591,6 +2628,7 @@ def phase_zoo(name: str, sets: tuple) -> dict:
 ZOO_LOADER = ("dpt_beit_large_512", "dpt_beit_large_384", "dpt_beit_base_384",
               "dpt_swin2_large_384", "dpt_swin2_base_384", "dpt_swin2_tiny_256",
               "dpt_swin_large_384", "dpt_next_vit_large_384", "dpt_levit_224")
+ZOO_LOADER_REPS = 3  # host and CUDA-event reps a bucket (the factory's zoo: 7)
 PATH_KERNELS.update({f"zoo_{name}": ZOO_CONV for name in ZOO_LOADER})
 
 
@@ -2615,8 +2653,10 @@ def loader_model(name: str, bias: float):
 def phase_zoo_loader(name: str) -> dict:
     """One model of ``ZOO_LOADER``: its host transform on a 426x560 frame and
     the model on its output; served by ``DepthService(model, cfg, "cuda",
-    max_batch=2)`` over HTTP and trained (``_zoo_serve``, ``_zoo_train``) with
-    ``framework.input_size`` the loader's. Path ``zoo_<name>``."""
+    max_batch=2)`` over HTTP (``_zoo_serve``: ZOO_LOADER_REPS reps a bucket,
+    no profile, no diagnostics) and trained (``_zoo_train``,
+    no witness), with ``framework.input_size`` the loader's. Path
+    ``zoo_<name>``."""
     from mde_tpu_torch.tools.common import set_float32_precision
     from mde_tpu_torch.tools.serve import DepthService
 
@@ -2641,13 +2681,14 @@ def phase_zoo_loader(name: str) -> dict:
         service.warmup()
         return service
 
-    total = collections.Counter(_zoo_serve(name, cfg, start))
+    total = collections.Counter(_zoo_serve(name, cfg, start, reps=ZOO_LOADER_REPS,
+                                           profile_buckets=(), diagnostics=False))
     del pred
     torch.cuda.empty_cache()
     with torch.no_grad():
         final_depth_conv(model).bias.add_(1.5)  # 2 above SEED's, as the factory's
     total.update(_zoo_train(name, cfg, model_cfg(name, *sets, "framework.compute_dtype=float32"),
-                            model))
+                            model, witness=False))
     torch.cuda.empty_cache()
     total = {k: total.get(k, 0) for k in read_counts()}
     emit({"phase": "zoo", "model": name, "loader": True, "launches": total,
@@ -3771,6 +3812,472 @@ def _check_parallel_bn(data: dict, ranks) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# serve_world: the server and the offline tools over (data, model) worlds
+# ---------------------------------------------------------------------------
+
+# (model, (data, model)) of each serving world, in order; one process is
+# served in this process first (``_serve_one_process``), the reading the
+# worlds' round trips stand beside.
+SERVE_WORLDS = (("flagship", (2, 1)), ("flagship", (1, 2)), ("flagship", (2, 2)),
+                ("da2", (1, 2)))
+SERVE_WORLD_MAX_BATCH = 8
+SERVE_WORLD_GROUPS = (1, 2, 4, 8)  # posts at once, each group filling its bucket
+SERVE_WORLD_REPS = 2
+# the batcher's window: a group's requests, sent together on connections
+# opened first, reach it within a few ms; one that comes later splits the
+# group, which is then posted again (the steps it took are counted)
+SERVE_WORLD_WINDOW_MS = 50
+SERVE_WORLD_ATTEMPTS = 3
+# launches a rank's device step: K3's eval form, K1 (flagship) and K4 on
+# the rank's heads; a rank with no rows of a bucket launches none
+SERVE_WORLD_STEP = {"flagship": {"preprocess_u8": 1, "window_attention": 1, "flash_attention": 12},
+                    "da2": {"preprocess_u8": 1, "flash_attention": 12}}
+PATH_KERNELS["serve_world_flagship"] = PATH_KERNELS["flagship_serve"]
+PATH_KERNELS["serve_world_da2"] = PATH_KERNELS["da2_serve"]
+# The offline tools at (2, 2) against one process: TP and the data split
+# reorder float32 sums; SI-RMSE's variance amplifies their relative
+# differences a few times, and a delta may count a pixel across its
+# threshold (1e-6 of the map's pixels).
+TOL_WORLD_TOOL_METRICS = 1e-4
+
+
+def _world_device(world: int) -> tuple[str, str | None]:
+    """(--device, backend) of a world of ``world`` ranks: one card a rank over
+    NCCL where the host has a card for each, else ranks sharing card 0 over
+    gloo (NCCL refuses two ranks on one card), as ``_tp_worlds``; one
+    process: ``cuda`` and no backend."""
+    if world == 1:
+        return "cuda", None
+    if torch.cuda.device_count() >= world:
+        return "cuda", "nccl"
+    return "cuda:0", "gloo"
+
+
+def _world_env(backend: str | None) -> dict:
+    """A world's environment: its backend, the checkout on the path (the tools
+    run in their own directories), unbuffered output, two threads a rank."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    if backend:
+        env["MDE_DIST_BACKEND"] = backend
+    return env
+
+
+def _world_sets(d: int, t: int) -> tuple:
+    return (f"framework.mesh.data={d}", f"framework.mesh.model={t}")
+
+
+def _serve_world_refs(tmp: str) -> dict:
+    """For each model: the serve phase's weights as a checkpoint in
+    ``tmp/<model>``, the groups' images, and the one-process predict step's
+    replies on each group's bucket (this process, the kernels' path)."""
+    from mde_tpu_torch.tools.common import bootstrap_model, set_float32_precision
+    from mde_tpu_torch.tools.serve import _buckets
+    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+    from mde_tpu_torch.train.trainer import make_predict_step
+
+    set_float32_precision()
+    device = _world_device(1)[0]
+    rng = np.random.default_rng(SEED + 19)
+    out = {}
+    for name in dict(SERVE_WORLDS):
+        results = os.path.join(tmp, name)
+        cfg = model_cfg(name, f"paths.results_dir={results}")
+        ckpt = checkpoint_path(results, cfg.experiment.model_name)
+        save_checkpoint(ckpt, make_model(name, cfg, bias=0.5 if name == "da2" else 0.0))
+        model, _ = bootstrap_model(cfg, device, checkpoint=ckpt)
+        step = make_predict_step(model, cfg)
+        native = tuple(int(v) for v in cfg.framework.native_size)
+        groups = [rng.integers(0, 256, (g, *native, 3), dtype=np.uint8)
+                  for g in SERVE_WORLD_GROUPS]
+        check(list(SERVE_WORLD_GROUPS) == list(_buckets(SERVE_WORLD_MAX_BATCH)),
+              "each group must fill one bucket")
+        refs = [step(torch.from_numpy(g).to(device)).cpu().numpy() for g in groups]
+        out[name] = {"results": results, "groups": groups, "refs": refs}
+        del model, step
+        out[name]["one_process"] = _serve_one_process(name, out[name])
+    return out
+
+
+def _start_world_server(name: str, d: int, t: int, results: str, log_path: str):
+    """``python -m mde_tpu_torch.tools.serve`` at (d, t), as a user starts it
+    (the launcher starts its ranks); returns (process, url, serving line)."""
+    device, backend = _world_device(d * t)
+    argv = [sys.executable, "-m", "mde_tpu_torch.tools.serve", "--device", device, "--port", "0",
+            "--max-batch", str(SERVE_WORLD_MAX_BATCH),
+            "--window-ms", str(SERVE_WORLD_WINDOW_MS),
+            *(a for x in (DA2_SETS if name == "da2" else ()) + (f"paths.results_dir={results}",)
+              + _world_sets(d, t) for a in ("--set", x))]
+    log = open(log_path, "w")
+    # a session of its own: a failed check kills the launcher and its ranks together
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=_world_env(backend), stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    log.close()
+    t0 = time.perf_counter()
+    try:
+        while True:
+            text = open(log_path).read()
+            serving = [line for line in text.splitlines() if line.startswith("serving ")]
+            if serving:
+                break
+            check(proc.poll() is None, f"serve_world {name} {d}x{t} exited: {text[-3000:]}")
+            check(time.perf_counter() - t0 < 600, f"serve_world {name} {d}x{t} did not start")
+            time.sleep(0.5)
+    except BaseException:
+        _kill_session(proc)
+        raise
+    url = "http://127.0.0.1:" + serving[0].split("127.0.0.1:")[1].split()[0]
+    return proc, url, serving[0], time.perf_counter() - t0
+
+
+def _kill_session(proc) -> None:
+    """SIGKILL to ``proc``'s session: the launcher and every rank it started."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _post_group(url: str, images: np.ndarray) -> tuple[list, float]:
+    """Every image posted at once, each from its own thread; the replies in
+    order and the round trip's ms. The connections are opened first, one
+    after another: eight at once overflow the HTTP server's listen backlog
+    (5), and a dropped connection comes back a second later, after the
+    batcher's window."""
+    import http.client
+
+    host, port = url.split("//", 1)[1].split(":")
+    bodies, conns = [], []
+    for img in images:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        bodies.append(buf.getvalue())
+        conns.append(http.client.HTTPConnection(host, int(port), timeout=300))
+        conns[-1].connect()
+    replies, errors = [None] * len(bodies), []
+    barrier = threading.Barrier(len(bodies))
+
+    def client(i: int):
+        try:
+            barrier.wait(timeout=60)
+            conns[i].request("POST", "/predict", body=bodies[i])
+            resp = conns[i].getresponse()
+            replies[i] = (resp.status, resp.read(), dict(resp.getheaders()))
+        except Exception as e:  # reported below
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+        finally:
+            conns[i].close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(not errors and all(r is not None for r in replies), f"serve_world clients: {errors}")
+    return replies, ms
+
+
+def _post_groups(url: str, ref: dict, tag: str) -> tuple[dict, float, collections.Counter]:
+    """Each group posted SERVE_WORLD_REPS times, every reply held to the
+    one-process predict step within the serve phase's bound. A group the
+    batcher split (a request later than its window) is posted again, at most
+    SERVE_WORLD_ATTEMPTS times. Returns the round trip ms of the groups that
+    came back as one step, by bucket; the largest error; and the device
+    steps by bucket that the replies' ``X-Batch-Size`` imply."""
+    from mde_tpu_torch.tools.serve import _buckets
+
+    buckets = _buckets(SERVE_WORLD_MAX_BATCH)
+    worst, ms, steps = 0.0, {str(len(g)): [] for g in ref["groups"]}, collections.Counter()
+    for _ in range(SERVE_WORLD_REPS):
+        for images, want in zip(ref["groups"], ref["refs"]):
+            for _attempt in range(SERVE_WORLD_ATTEMPTS):
+                replies, group_ms = _post_group(url, images)
+                sizes = []
+                for (status, body, headers), w in zip(replies, want):
+                    check(status == 200, f"serve_world {tag}: HTTP {status}: {body[:200]!r}")
+                    depth = np.load(io.BytesIO(body))
+                    err = float(np.abs(depth - w).max())
+                    check(depth.shape == w.shape and np.isfinite(depth).all()
+                          and err <= TOL_SERVED
+                          and err <= TOL_SERVED_SPREAD * float(w.max() - w.min()),
+                          f"serve_world {tag}: reply vs one-process predict step max-abs {err}")
+                    worst = max(worst, err)
+                    sizes.append(int(headers["X-Batch-Size"]))
+                # a step of n requests gives n replies that say n
+                for n, count in collections.Counter(sizes).items():
+                    check(count % n == 0, f"serve_world {tag}: X-Batch-Size {sizes}")
+                    steps[next(b for b in buckets if n <= b)] += count // n
+                if sizes == [len(images)] * len(images):
+                    ms[str(len(images))].append(group_ms)
+                    break
+            else:
+                check(False, f"serve_world {tag}: a group of {len(images)} came back split "
+                      f"{SERVE_WORLD_ATTEMPTS} times: X-Batch-Size {sizes}")
+    return ms, worst, steps
+
+
+def _serve_one_process(name: str, ref: dict) -> dict:
+    """The groups through ``build_service`` and the HTTP handler in this
+    process (one process, the serving worlds' yardstick), before the
+    parallel phase counts this process's launches."""
+    from http.server import ThreadingHTTPServer
+
+    from mde_tpu_torch.tools.serve import build_service, make_handler
+
+    cfg = model_cfg(name, f"paths.results_dir={ref['results']}")
+    t0 = time.perf_counter()
+    service = build_service(cfg, _world_device(1)[0],
+                            max_batch=SERVE_WORLD_MAX_BATCH, window_ms=SERVE_WORLD_WINDOW_MS)
+    start_s = time.perf_counter() - t0
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        ms, worst, steps = _post_groups(f"http://127.0.0.1:{server.server_address[1]}", ref,
+                                        f"{name} one process")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    return {"model": name, "world": [1, 1], "backend": None, "start_s": start_s,
+            "max_abs_vs_predict_step": worst, "steps_by_bucket": dict(steps), **_round_trips(ms)}
+
+
+def _round_trips(ms: dict) -> dict:
+    """Median round trip a bucket, and every reading."""
+    return {"round_trip_ms_by_bucket": {b: statistics.median(v) for b, v in ms.items()},
+            "round_trip_ms_turns": ms}
+
+
+def _serve_world(name: str, d: int, t: int, ref: dict, tmp: str) -> dict:
+    """One serving world started as a user starts it: ``_post_groups``; then
+    SIGTERM to the launcher, its exit code 0, every rank's stop line, and
+    each rank's device steps and launches by bucket (the path's per step on
+    the rows it holds, none on a bucket it holds no rows of). Returns the
+    world's readings."""
+    import signal
+
+    tag = f"{name} {d}x{t}"
+    log_path = os.path.join(tmp, f"serve_{name}_{d}{t}.log")
+    proc, url, serving, start_s = _start_world_server(name, d, t, ref["results"], log_path)
+    try:
+        ms, worst, steps = _post_groups(url, ref, tag)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t0
+    except BaseException:
+        _kill_session(proc)
+        raise
+    text = open(log_path).read()
+    check(rc == 0, f"serve_world {tag}: the launcher exited {rc} on SIGTERM: {text[-3000:]}")
+    stopped = {}
+    for line in text.splitlines():
+        if line.startswith("rank ") and " stopped; steps by bucket " in line:
+            head, tail = line.split(" stopped; steps by bucket ", 1)
+            stopped[int(head.split()[1])] = json.loads(tail)
+    check(sorted(stopped) == list(range(d * t)),
+          f"serve_world {tag}: stop lines of ranks {sorted(stopped)}: {text[-3000:]}")
+    per_step = SERVE_WORLD_STEP[name]
+    launches = dict.fromkeys(_counters(), 0)
+    for rank, by_bucket in stopped.items():
+        check(set(by_bucket) <= {str(b) for b in steps}, f"serve_world {tag}: rank {rank} "
+              f"stepped buckets {sorted(by_bucket)}, the replies say {dict(steps)}")
+        for b, n in steps.items():
+            entry = by_bucket.get(str(b), {"steps": 0, "launches": {}})
+            holds_rows = b % d == 0 or rank // t == 0  # a bucket that does not split: data index 0
+            want = {k: v * n for k, v in per_step.items()} if holds_rows else {}
+            check(entry["steps"] == n and entry["launches"] == want,
+                  f"serve_world {tag}: rank {rank} bucket {b}: {entry}, want {n} steps "
+                  f"launching {want}")
+            for k, v in entry["launches"].items():
+                launches[k] += v
+    return {"world": [d, t], "backend": _world_device(d * t)[1], "serving": serving,
+            "start_s": start_s, "stop_s": stop_s,
+            "exit_code": rc, "ranks_stopped": sorted(stopped), "max_abs_vs_predict_step": worst,
+            "steps_by_bucket": dict(steps), **_round_trips(ms), "launches_by_rank": stopped,
+            "launches": launches}
+
+
+def _tool_world(tool: str, keep: str, d: int, t: int, cwd: str, preds: str) -> tuple[str, float]:
+    """``python -m mde_tpu_torch.tools.<tool>`` at (d, t) on ``keep``'s data
+    and checkpoint, run in ``cwd``; its output and seconds."""
+    device, backend = _world_device(d * t)
+    argv = [sys.executable, "-m", f"mde_tpu_torch.tools.{tool}", "--device", device,
+            *(a for x in (f"paths.data_dir={keep}/data", f"paths.results_dir={keep}/results",
+                          f"paths.predictions_dir={preds}", *_world_sets(d, t))
+              for a in ("--set", x))]
+    os.makedirs(cwd, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=cwd, env=_world_env(backend), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except BaseException:
+        _kill_session(proc)
+        raise
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"serve_world: {tool} at {d}x{t} exited {proc.returncode}: "
+          f"{stdout[-2000:]} {stderr[-3000:]}")
+    return stdout, seconds
+
+
+def _tool_outputs(stdout: str, preds: str, csv_path: str) -> dict:
+    """The evaluation tool's printed metrics and count, or the prediction
+    dump's arrays and CSV rows."""
+    import csv
+
+    out = {}
+    lines = dict(line.rsplit(": ", 1) for line in stdout.splitlines()
+                 if ": " in line and not line.startswith("Starting"))
+    if "Average Scale-Invariant Loss" in lines:
+        out["metrics"] = {k: float(v) for k, v in lines.items() if k.startswith("Average")}
+        out["trainable"] = int(lines["Number of trainable parameters in the model"])
+    if os.path.exists(csv_path):
+        out["arrays"] = {f: np.load(os.path.join(preds, f)) for f in sorted(os.listdir(preds))}
+        with open(csv_path, newline="") as f:
+            out["rows"] = list(csv.reader(f))
+    return out
+
+
+def _decode_rows(rows: list) -> dict:
+    import base64
+    import zlib
+
+    return {file_id: np.array([float(v) for v in zlib.decompress(base64.b64decode(blob))
+                               .decode("utf-8").split(",")]) for file_id, blob in rows[1:]}
+
+
+def _tools_world(tmp: str) -> dict:
+    """The evaluation tool and the prediction dump on generated data and the
+    flagship's weights (a depth bias of 2, as train), each run as a user
+    runs it, as one process and at (2, 2); the world's metrics, arrays and
+    CSV rows against one process's. Rank 0 alone prints and writes the
+    CSV."""
+    from mde_tpu_torch.data import synthetic
+    from mde_tpu_torch.train.checkpoint import checkpoint_path, save_checkpoint
+
+    keep = os.path.join(tmp, "tools")
+    synthetic.generate(os.path.join(keep, "data"), n_train=16, n_test=4,
+                       size=TRAIN_SHAPE[1:], seed=SEED)
+    cfg = model_cfg("flagship")
+    save_checkpoint(checkpoint_path(os.path.join(keep, "results"), cfg.experiment.model_name),
+                    make_model("flagship", cfg, bias=2.0))
+    one, world, seconds = {}, {}, {}
+    for tool in ("evaluation", "generate_predictions"):
+        for (d, t), out in (((1, 1), one), ((2, 2), world)):
+            tag = f"{d}{t}"
+            cwd, preds = os.path.join(keep, f"cwd_{tag}"), os.path.join(keep, f"preds_{tag}")
+            stdout, seconds[f"{tool}_{tag}"] = _tool_world(tool, keep, d, t, cwd, preds)
+            check(stdout.count("Average Scale-Invariant Loss") <= 1
+                  and stdout.count("CSV file saved to") <= 1,
+                  f"serve_world {tool} at {d}x{t}: not rank 0 alone")
+            out.update(_tool_outputs(stdout, preds, os.path.join(cwd, "predictions.csv")))
+    rel = {k: abs(v - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-30)
+           for k, v in world["metrics"].items()}
+    check(set(world["metrics"]) == set(one["metrics"])
+          and max(rel.values()) <= TOL_WORLD_TOOL_METRICS,
+          f"serve_world evaluation at 2x2 vs one process: rel {rel}")
+    check(world["trainable"] == one["trainable"],
+          f"serve_world evaluation: {world['trainable']} trainable, one process {one['trainable']}")
+    files = sorted(world["arrays"])
+    check(files == sorted(one["arrays"]) and len(files) == 4,
+          f"serve_world predictions {files} vs {sorted(one['arrays'])}")
+    gap = max(float(np.abs(world["arrays"][f] - one["arrays"][f]).max()) for f in files)
+    check(gap <= TOL_TOOL_PRED, f"serve_world predictions at 2x2: max-abs {gap} from one process")
+    decoded, decoded_one = _decode_rows(world["rows"]), _decode_rows(one["rows"])
+    check(list(decoded) == [os.path.splitext(f)[0] for f in files] == list(decoded_one),
+          f"serve_world CSV ids {list(decoded)}")
+    for f in files:
+        key = os.path.splitext(f)[0]
+        own = np.array([float(f"{x:.2f}") for x in np.round(world["arrays"][f].ravel(), 2)])
+        check(np.array_equal(decoded[key], own), f"serve_world CSV row {key} vs its .npy")
+        check(float(np.abs(decoded[key] - decoded_one[key]).max()) <= 0.01 + 1e-6,
+              f"serve_world CSV row {key} vs one process's")
+    return {"world": [2, 2], "backend": _world_device(4)[1], "seconds": seconds,
+            "metrics": world["metrics"],
+            "metrics_rel_vs_one_process": rel, "trainable": world["trainable"],
+            "predictions": len(files), "predictions_max_abs_vs_one_process": gap,
+            "tolerances": {"metrics_rel": TOL_WORLD_TOOL_METRICS, "predictions": TOL_TOOL_PRED}}
+
+
+def start_serve_world() -> dict:
+    """Compute the serving worlds' references in this process (before the
+    phase beside it counts its launches), then run the worlds and the
+    offline tools in a thread; each world is its own processes."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_world_")
+    refs = _serve_world_refs(tmp)
+    # this process's cached blocks (the zoo's reach 40 GB) go back to the card:
+    # the worlds' ranks share it with the phase beside them
+    torch.cuda.empty_cache()
+
+    def work() -> dict:
+        t0 = time.perf_counter()
+        worlds = [refs[name]["one_process"] for name in refs]
+        for name, (d, t) in SERVE_WORLDS:
+            worlds.append({"model": name, **_serve_world(name, d, t, refs[name], tmp)})
+        return {"worlds": worlds, "seconds": time.perf_counter() - t0}
+
+    return {"tmp": tmp, "task": Background(work)}
+
+
+def start_tools_world() -> dict:
+    """``_tools_world`` in a thread (its tools run in their own processes)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_world_")
+    return {"tmp": tmp, "task": Background(lambda: _tools_world(tmp))}
+
+
+def stop_world_run(run: dict) -> None:
+    """Wait for a ``start_*_world`` thread and remove its directory."""
+    import shutil
+
+    run["task"].wait()
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def finish_tools_world(run: dict) -> None:
+    """Wait for ``start_tools_world``'s thread and emit its line."""
+    try:
+        out = run["task"].result()
+    finally:
+        stop_world_run(run)
+    emit({"phase": "serve_world", "tools": out})
+
+
+def finish_serve_world(run: dict) -> dict:
+    """Wait for ``start_serve_world``'s thread, emit its lines and return the
+    serving worlds' launches by path (summed over ranks and worlds)."""
+    try:
+        out = run["task"].result()
+    finally:
+        stop_world_run(run)
+    head = {"phase": "serve_world", "cards": torch.cuda.device_count(),
+            "max_batch": SERVE_WORLD_MAX_BATCH, "window_ms": SERVE_WORLD_WINDOW_MS,
+            "reps": SERVE_WORLD_REPS,
+            "tolerance": {"abs": TOL_SERVED, "of_spread": TOL_SERVED_SPREAD},
+            "note": ("a world's ranks share card 0 over gloo where the host has fewer cards "
+                     "than ranks, else one card a rank over NCCL (backend); the full script "
+                     "runs the worlds beside the export_zoo phase: round trips are readings "
+                     "under load, not a scaling figure")}
+    by_path = {f"serve_world_{name}": dict.fromkeys(_counters(), 0) for name in dict(SERVE_WORLDS)}
+    for w in out["worlds"]:
+        emit({**head, **{k: v for k, v in w.items() if k != "launches"}})
+        for k, v in w.get("launches", {}).items():  # one process's are the serve phase's
+            by_path[f"serve_world_{w['model']}"][k] += v
+    emit({**head, "seconds": out["seconds"]})
+    for path, counts in by_path.items():
+        check_path_launches(path, counts, f"by the {path} ranks")
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -3817,9 +4324,20 @@ def main() -> int:
         # the zoo's export alone: the quick run for export's own changes
         emit({"export_zoo_launches": phase_export_zoo(), "seconds": time.perf_counter() - T0})
         return 0
+    if sys.argv[1:] == ["--serve-world-only"]:
+        # the serving worlds and, beside them, the offline tools alone
+        tools_world = start_tools_world()
+        try:
+            launches = finish_serve_world(start_serve_world())
+        except BaseException:
+            stop_world_run(tools_world)
+            raise
+        finish_tools_world(tools_world)
+        emit({"serve_world_launches": launches, "seconds": time.perf_counter() - T0})
+        return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}; the only ones are "
-          "--k4-backward-only, --k2-only, --parallel-only, --tp-only, --zoo-only and "
-          "--export-only")
+          "--k4-backward-only, --k2-only, --parallel-only, --tp-only, --zoo-only, "
+          "--export-only and --serve-world-only")
     phase_s, mark = {}, [time.perf_counter()]
 
     def lap(phase: str) -> None:  # the seconds since the last lap, by phase
@@ -3837,14 +4355,35 @@ def main() -> int:
         lap(f"{name}_serve_train_tools_export")
     by_path["flagship_augment"] = phase_augment()
     lap("augment")
-    for name, sets in ZOO:
-        by_path.update(phase_zoo(name, sets))
-    lap("zoo")
-    for name in ZOO_LOADER:
-        by_path.update(phase_zoo_loader(name))
-    lap("zoo_loader")
-    by_path.update(phase_export_zoo())
+    # the offline tools as one process and at (2, 2) beside the zoo phases,
+    # which check no time: small ranks, a few frames each
+    tools_world = start_tools_world()
+    try:
+        for name, sets in ZOO:
+            by_path.update(phase_zoo(name, sets))
+        lap("zoo")
+        for name in ZOO_LOADER:
+            by_path.update(phase_zoo_loader(name))
+        lap("zoo_loader")
+    except BaseException:
+        stop_world_run(tools_world)
+        raise
+    finish_tools_world(tools_world)
+    lap("serve_world_tools_after_zoo_loader")
+    # the serving worlds (their references first, in this process) beside the
+    # zoo's export, which checks no time. Beside the parallel phase their
+    # ranks and its ranks and the examples' ran the card out of memory
+    # (cuBLAS could not allocate its handle, twice).
+    serve_world = start_serve_world()
+    lap("serve_world_references")
+    try:
+        by_path.update(phase_export_zoo())
+    except BaseException:
+        stop_world_run(serve_world)
+        raise
     lap("export_zoo")
+    by_path.update(finish_serve_world(serve_world))
+    lap("serve_world_after_export_zoo")
     examples = start_examples()  # beside the parallel phase, which times nothing it checks
     try:
         by_path.update(phase_parallel())  # the tensor_parallel phase's worlds beside it

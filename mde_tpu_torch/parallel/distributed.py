@@ -26,24 +26,38 @@ loss sums, the metric sums, BatchNorm's statistics and the gradient average
 go over the data group; the Megatron collectives of ``parallel.tensor`` go
 over the model group.
 
-Launchers: the training CLI spawns one process per card itself; under
+The server (tools/serve.py) runs over the same grid: rank 0 announces each
+device step with a header and broadcasts its bucket, each data index takes
+its rows by ``shard_batch``'s rule (``bucket_rows``), and ``gather_rows``
+brings them back to rank 0 over the data group.
+
+Launchers: the training CLI, the server and the offline tools spawn one
+process per card themselves (``tools/common.py::enter_world``); under
 torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 ``MASTER_PORT``) or with the ``MDE_DIST_*`` variables each process joins
 (``initialize_from_env``). A rank's card is ``cuda:{LOCAL_RANK}`` (the
-process id where ``LOCAL_RANK`` is unset).
+process id where ``LOCAL_RANK`` is unset). A collective that waits longer
+than ``GROUP_TIMEOUT`` (600 s) fails, so that a rank that died ends the
+run.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 # MDE_DIST_BACKEND names the backend (gloo or nccl); by default NCCL on
 # CUDA and gloo on the CPU.
 BACKENDS = ("gloo", "nccl")
+
+# How long a collective waits for its peers before it fails, so that a rank
+# that died ends the run instead of hanging it.
+GROUP_TIMEOUT = datetime.timedelta(seconds=600)
 
 
 def local_rank() -> int:
@@ -80,7 +94,8 @@ def initialize(init_method: str, num_processes: int, process_id: int,
                device: torch.device, backend: Optional[str] = None) -> None:
     """Join the process group (idempotent). ``backend`` None takes NCCL for a
     CUDA ``device`` and gloo for the CPU; NCCL is given the rank's card
-    (``torch.cuda.set_device`` first). A backend that cannot start raises."""
+    (``torch.cuda.set_device`` first). A backend that cannot start raises.
+    Every group's collectives fail after ``GROUP_TIMEOUT``."""
     if dist.is_initialized():
         return
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -96,7 +111,7 @@ def initialize(init_method: str, num_processes: int, process_id: int,
         if backend == "nccl":
             kwargs["device_id"] = device
     dist.init_process_group(backend, init_method=init_method, world_size=num_processes,
-                            rank=process_id, **kwargs)
+                            rank=process_id, timeout=GROUP_TIMEOUT, **kwargs)
 
 
 def initialize_from_env(device: str = "cpu") -> bool:
@@ -158,7 +173,8 @@ def set_model_axis(model: int) -> None:
                    "data_group": [list(range(m, world, model)) for m in range(model)]}
         for key, layout in layouts.items():
             for ranks in layout:
-                group = dist.new_group(ranks) if len(ranks) < world else None
+                group = (dist.new_group(ranks, timeout=GROUP_TIMEOUT) if len(ranks) < world
+                         else None)
                 if rank in ranks:
                     groups[key] = group
     _AXES.update(model=model, **groups)
@@ -288,3 +304,63 @@ def broadcast_floats(values, device) -> list[float]:
     if is_multiprocess():
         dist.broadcast(t, 0)
     return t.tolist()
+
+
+# ------------------------------------------------------------------ serving
+#
+# The server's world (tools/serve.py): rank 0 owns the HTTP server and the
+# batcher, and every collective it issues is announced by a header that the
+# other ranks receive in the same order. Tensors move on the rank's card
+# under NCCL and on the CPU under gloo.
+
+SERVE_STOP, SERVE_PREDICT, SERVE_FETCH, SERVE_IDLE = 0, 1, 2, 3
+
+
+def comm_device(device: torch.device) -> torch.device:
+    """Where this rank's serving collectives hold their tensors: ``device``
+    under NCCL, the CPU under gloo."""
+    return device if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def broadcast_header(op: int, size: int, device: torch.device) -> tuple[int, int]:
+    """(op, bucket size), process 0's on every process: process 0 passes
+    its own, the others anything."""
+    t = torch.tensor([op, size], dtype=torch.int64, device=comm_device(device))
+    dist.broadcast(t, 0)
+    op, size = t.tolist()
+    return int(op), int(size)
+
+
+def broadcast_bucket(bucket: Optional[np.ndarray], shape, device: torch.device) -> torch.Tensor:
+    """Process 0's uint8 ``bucket`` (None elsewhere) of ``shape`` on every
+    process, on ``comm_device(device)``."""
+    where = comm_device(device)
+    if is_primary():
+        t = torch.from_numpy(np.ascontiguousarray(bucket)).to(where)
+    else:
+        t = torch.empty(tuple(shape), dtype=torch.uint8, device=where)
+    dist.broadcast(t, 0)
+    return t
+
+
+def bucket_rows(bucket: int, index: Optional[int] = None,
+                count: Optional[int] = None) -> Optional[tuple[int, int]]:
+    """[start, stop) of data index ``index``'s rows of a bucket, by
+    ``shard_batch``'s rule (mde_tpu/parallel/mesh.py:93-124): a contiguous
+    block of each data index when the bucket divides over the ``count``
+    data indices; None when it does not, and the bucket runs whole.
+    ``index``/``count`` default to this rank's."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
+    return None if bucket % count else local_row_block(bucket, index, count)
+
+
+def gather_rows(rows: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The data indices' ``rows`` (equal shapes) in data-index order, over
+    this rank's data group; each model index's data group gathers its own."""
+    if group_size(data_group()) == 1:
+        return rows
+    rows = rows.to(comm_device(device)).contiguous()
+    parts = [torch.empty_like(rows) for _ in range(data_count())]
+    dist.all_gather(parts, rows, group=data_group())  # the list form: gloo has it on CUDA
+    return torch.cat(parts)

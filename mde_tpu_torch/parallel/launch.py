@@ -2,12 +2,14 @@
 variables; and the data-parallel run the tests and the smoke run hold
 against one process.
 
-``spawn`` is how the training CLI starts W processes itself: each runs
+``spawn`` is how the tools start W processes themselves: each runs
 ``python -m <module> <argv>`` with ``MDE_DIST_COORDINATOR`` (a free
 localhost port), ``MDE_DIST_NUM_PROCESSES``, ``MDE_DIST_PROCESS_ID`` and
 ``LOCAL_RANK`` set, ``MDE_DIST_CPU`` on the CPU, and ``MDE_DIST_BACKEND``
 passed on. If any rank fails, the others are stopped and its exit code is
-returned.
+returned. A SIGTERM or SIGINT to the process that spawned them is passed on
+to every rank, and the ranks are waited for: a server's ranks stop in order
+and exit 0 (tools/serve.py), a training rank ends at the signal.
 
 ``python -m mde_tpu_torch.parallel.launch SPEC.json`` is one rank of a
 checked run (``run_rank``): the jobs of the spec (the cross-process
@@ -25,9 +27,11 @@ import contextlib
 import copy
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -48,7 +52,9 @@ def spawn(module: str, argv: list, world: int, cpu: bool, timeout: Optional[floa
     """Run ``python -m module *argv`` as ``world`` ranks on this host; returns
     0 when every rank exits 0, else the first failing rank's code (124 when
     ``timeout`` seconds pass), after stopping the others. ``backend`` sets
-    ``MDE_DIST_BACKEND`` for the ranks (else they inherit it)."""
+    ``MDE_DIST_BACKEND`` for the ranks (else they inherit it). Called on the
+    main thread, it passes a SIGTERM or SIGINT it receives on to the ranks
+    and goes on waiting for them."""
     port = free_port()
     env = dict(os.environ)
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "MDE_DIST_CPU"):
@@ -60,6 +66,15 @@ def spawn(module: str, argv: list, world: int, cpu: bool, timeout: Optional[floa
     if backend:
         env["MDE_DIST_BACKEND"] = backend
     procs = []
+
+    def forward(signum, frame):
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signum)
+
+    handled = (signal.SIGTERM, signal.SIGINT)
+    previous = ({s: signal.signal(s, forward) for s in handled}
+                if threading.current_thread() is threading.main_thread() else {})
     try:
         for p in range(world):
             procs.append(subprocess.Popen(
@@ -77,6 +92,8 @@ def spawn(module: str, argv: list, world: int, cpu: bool, timeout: Optional[floa
                 return 124
             time.sleep(0.1)
     finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
         for proc in procs:
             if proc.poll() is None:
                 proc.terminate()

@@ -56,13 +56,15 @@ def _check_model_axis(model_cfg) -> None:
             "item 5b-zoo)")
 
 
-def mesh_world(cfg, device: str) -> tuple[int, int]:
+def mesh_world(cfg, device: str, batch_size: Optional[int] = None) -> tuple[int, int]:
     """(data, model): the data-parallel ranks and T, the ranks of one data
-    index that share a model (``framework.mesh.model``), of a training run.
+    index that share a model (``framework.mesh.model``), of a run whose
+    global batch is ``batch_size`` (default ``training.batch_size``; the
+    server passes its ``--max-batch``).
 
-    As ``make_training_mesh`` (mde_tpu/parallel/mesh.py:78-85): ``usable`` =
-    cards // model, and ``framework.mesh.data`` (-1: all of them) is
-    clamped to divide ``training.batch_size``. ``--device cuda`` counts the
+    As ``make_training_mesh(cfg, batch_size)`` (mde_tpu/parallel/mesh.py:78-85):
+    ``usable`` = cards // model, and ``framework.mesh.data`` (-1: all of
+    them) is clamped to divide the batch. ``--device cuda`` counts the
     visible cards; on the CPU, or with one named card (``cuda:N``, ranks
     sharing it), processes are not bounded by cards and -1 means one. Under
     a launcher the world is its process count, which the config must allow.
@@ -76,14 +78,14 @@ def mesh_world(cfg, device: str) -> tuple[int, int]:
     if model > 1:
         _check_model_axis(cfg.model)
     requested = int(mesh.get("data", -1))
-    batch_size = int(cfg.training.batch_size)
+    batch_size = int(cfg.training.batch_size if batch_size is None else batch_size)
     if dist.is_multiprocess():
         w = dist.process_count()
         d = w // model
         if w % model or requested not in (-1, d) or batch_size % d:
             raise ValueError(f"{w} processes were launched: framework.mesh.model ({model}) must "
                              f"divide them, framework.mesh.data must be -1 or {d} (it is "
-                             f"{requested}) and training.batch_size must split over {d} (it is "
+                             f"{requested}) and the batch must split over {d} (it is "
                              f"{batch_size})")
         return d, model
     dev = torch.device(device)

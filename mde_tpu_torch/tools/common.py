@@ -2,10 +2,12 @@
 config resolution, path layout, loaders, model bootstrapping.
 
 There is no compilation cache to set up: PyTorch runs eagerly. A process
-started by a launcher (torchrun, the ``MDE_DIST_*`` variables, or the
-training CLI's own spawn) joins its process group in ``parse_config``
-(``parallel.distributed.initialize_from_env``), and ``build_loaders`` gives
-it its rows of every batch.
+started by a launcher (torchrun, the ``MDE_DIST_*`` variables, or a tool's
+own spawn) joins its process group in ``parse_config``
+(``parallel.distributed.initialize_from_env``); ``enter_world`` starts or
+joins the (data, model) world a tool runs over, ``bootstrap_world_model``
+gives a rank its share of the model, and ``build_loaders`` gives it its
+rows of every batch.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Optional
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -21,7 +24,9 @@ from ..core import config as config_lib
 from ..data.dataset import DepthDataset, split_train_val
 from ..data.loader import HostLoader
 from ..models.factory import build_model
-from ..parallel import distributed
+from ..parallel import distributed, launch
+from ..parallel.mesh import mesh_world
+from ..parallel.tensor import tensor_parallel
 from ..train.checkpoint import load_checkpoint
 
 
@@ -93,6 +98,49 @@ def tool_device(name: str) -> torch.device:
     return device
 
 
+class World(NamedTuple):
+    """This rank's card and the (data, model) world it runs in."""
+    device: torch.device
+    data: int
+    model: int
+
+
+def enter_world(cfg, args, module: str, argv=None,
+                batch_size: Optional[int] = None) -> Optional[World]:
+    """Start or join the (data, model) world of ``mesh_world(cfg, --device,
+    batch_size)``, as the JAX tools build ``make_training_mesh(cfg,
+    batch_size)``.
+
+    One rank: this process, with no collective. More, and no launcher in
+    the environment: this process starts them as ``python -m module argv``
+    (``launch.spawn``; ``argv`` None is this process's own arguments), waits
+    for them and returns None; it exits non-zero if one fails. A rank (under
+    a launcher) splits the world into its data and model groups and gets its
+    card (``rank_device``). ``--device cuda`` without a card exits."""
+    device = tool_device(args.device)
+    data, model = mesh_world(cfg, args.device, batch_size)
+    world = data * model
+    if world > 1 and not distributed.is_multiprocess():
+        print(f"Starting {world} processes: (data, model) = ({data}, {model})")
+        rc = launch.spawn(module, sys.argv[1:] if argv is None else argv, world,
+                          cpu=device.type == "cpu")
+        if rc:
+            raise SystemExit(f"a rank exited with {rc}")
+        return None
+    distributed.set_model_axis(model)
+    return World(distributed.rank_device(args.device), data, model)
+
+
+def world_line(world: World) -> str:
+    """", rank p of W (data i of D, model j of T; backend)", or "" in one
+    process."""
+    if distributed.process_count() == 1:
+        return ""
+    return (f", rank {distributed.process_index()} of {world.data * world.model} (data "
+            f"{distributed.data_index()} of {world.data}, model {distributed.model_index()} of "
+            f"{world.model}; {torch.distributed.get_backend()})")
+
+
 def resolve_paths(cfg):
     data_dir = cfg.paths.data_dir
     train_list = cfg.paths.get("train_list") or os.path.join(data_dir, "train_list.txt")
@@ -107,6 +155,13 @@ def resolve_paths(cfg):
     }
 
 
+def process_shard() -> Optional[tuple[int, int]]:
+    """``HostLoader``'s ``process_shard`` of this rank: (data index, data
+    count) over more than one data index, else None."""
+    return ((distributed.data_index(), distributed.data_count())
+            if distributed.data_count() > 1 else None)
+
+
 def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
     """Train/val loaders over the 85/15 ``split_train_val`` of the train list,
     and a test loader when the test list exists; batches land on ``device``
@@ -117,8 +172,7 @@ def build_loaders(cfg, paths, train: bool = True, device=None) -> dict:
     fw = cfg.framework
     bs = int(cfg.training.batch_size)
     workers = int(fw.num_workers)
-    shard = ((distributed.data_index(), distributed.data_count())
-             if distributed.data_count() > 1 else None)
+    shard = process_shard()
     loaders = {}
     if train:
         full = DepthDataset(paths["train_dir"], paths["train_list"], has_gt=True)
@@ -155,3 +209,14 @@ def bootstrap_model(cfg, device, checkpoint: Optional[str] = None):
     if checkpoint is not None and os.path.exists(checkpoint):
         report = load_checkpoint(model, checkpoint)
     return model.to(device).eval(), report
+
+
+def bootstrap_world_model(cfg, device, checkpoint: Optional[str] = None):
+    """``bootstrap_model`` (the full checkpoint loaded into the whole model),
+    then this rank's Megatron share of it (``tensor_parallel``) where the
+    world's model axis is more than one rank. Returns (model, load report
+    or None)."""
+    model, report = bootstrap_model(cfg, device, checkpoint=checkpoint)
+    if distributed.model_count() > 1:
+        tensor_parallel(model, distributed.model_count())
+    return model, report

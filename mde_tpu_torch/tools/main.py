@@ -14,11 +14,11 @@ then the 426x560 test predictions. ``--device cuda`` without a card fails
 rather than training on the CPU.
 
 The world is the JAX tool's ('data', 'model') mesh (``parallel.mesh.
-mesh_world``): T = ``framework.mesh.model`` ranks share a model, and the
-data axis ``framework.mesh.data`` (-1: every usable card, the visible cards
-over T) is clamped to divide ``training.batch_size``. With more than one
-rank and no launcher in the environment, the tool starts data x T processes
-of itself, one a card over NCCL (gloo on the CPU, or where
+mesh_world``, entered through ``common.enter_world``): T =
+``framework.mesh.model`` ranks share a model, and the data axis
+``framework.mesh.data`` (-1: every usable card, the visible cards over T) is
+clamped to divide ``training.batch_size``. With more than one rank and no
+launcher in the environment, the tool starts data x T processes of itself, one a card over NCCL (gloo on the CPU, or where
 ``MDE_DIST_BACKEND=gloo`` names it, as for ranks that share one named card
 ``--device cuda:N``), waits for them and exits non-zero if any fails. Under
 torchrun or the ``MDE_DIST_*`` variables each process joins instead. Rank p
@@ -37,20 +37,18 @@ ranks, which loads into one process.
 from __future__ import annotations
 
 import os
-import sys
 import time
 
 import torch
 
-from ..parallel import distributed, launch
-from ..parallel.mesh import data_parallel, mesh_world
-from ..parallel.tensor import tensor_parallel
+from ..parallel import distributed
+from ..parallel.mesh import data_parallel
 from ..train.checkpoint import (checkpoint_path, load_optimizer_state, load_state_dict,
                                 load_training_checkpoint)
 from ..train.logging import ExperimentLogger
 from ..train.trainer import evaluate_full_suite, fit, generate_test_predictions, make_optimizer
-from .common import (bootstrap_model, build_loaders, parse_config, resolve_paths,
-                     set_float32_precision, tool_device)
+from .common import (bootstrap_world_model, build_loaders, enter_world, parse_config,
+                     resolve_paths, set_float32_precision, world_line)
 
 
 def main(argv=None) -> dict | None:
@@ -58,18 +56,10 @@ def main(argv=None) -> dict | None:
     that started the ranks of a data-parallel run)."""
     cfg, args = parse_config("Train a depth model (PyTorch port)", argv=argv)
     set_float32_precision()
-    device = tool_device(args.device)
-    data, model_ranks = mesh_world(cfg, args.device)
-    world = data * model_ranks
-    if world > 1 and not distributed.is_multiprocess():
-        print(f"Starting {world} processes: (data, model) = ({data}, {model_ranks})")
-        rc = launch.spawn("mde_tpu_torch.tools.main", sys.argv[1:] if argv is None else argv,
-                          world, cpu=device.type == "cpu")
-        if rc:
-            raise SystemExit(f"a rank exited with {rc}")
-        return None
-    distributed.set_model_axis(model_ranks)
-    device = distributed.rank_device(args.device)
+    world = enter_world(cfg, args, "mde_tpu_torch.tools.main", argv)
+    if world is None:
+        return None  # the ranks ran in their own processes
+    device = world.device
     paths = resolve_paths(cfg)
     os.makedirs(paths["results_dir"], exist_ok=True)
     os.makedirs(paths["predictions_dir"], exist_ok=True)
@@ -98,17 +88,13 @@ def main(argv=None) -> dict | None:
     )
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-          + (f", rank {distributed.process_index()} of {world} (data {distributed.data_index()}"
-             f" of {data}, model {distributed.model_index()} of {model_ranks}; "
-             f"{torch.distributed.get_backend()})" if world > 1 else ""))
+          + world_line(world))
 
     loaders = build_loaders(cfg, paths, train=True, device=device)
     print(f"Train size: {loaders['train'].num_samples}, "
           f"Validation size: {loaders['val'].num_samples}")
 
-    model, _ = bootstrap_model(cfg, device)
-    if model_ranks > 1:
-        tensor_parallel(model, model_ranks)
+    model, _ = bootstrap_world_model(cfg, device)
     optimizer = make_optimizer(model, cfg)
     start_epoch = int(cfg.training.resume_training.resume_from_epoch) if resume else 0
     es_state = {}
@@ -131,7 +117,7 @@ def main(argv=None) -> dict | None:
               f"(epoch {es_state['best_epoch']}), counter={es_state['es_counter']}")
 
     print("Starting training...")
-    trained = data_parallel(model, device) if world > 1 else model
+    trained = data_parallel(model, device) if distributed.is_multiprocess() else model
     history = fit(trained, cfg, optimizer, loaders["train"], loaders["val"],
                   paths["results_dir"], logger=logger, start_epoch=start_epoch,
                   seed=int(cfg.framework.seed), **es_state)

@@ -26,27 +26,51 @@ Run: ``python -m mde_tpu_torch.tools.serve [--config ...] [--device cuda]
 [--port 8000]``. With ``--exported MODEL.mdex`` it serves an archive of
 ``python -m mde_tpu_torch.tools.export_model`` (train/export.py) instead: no
 model is built and no checkpoint read, and the batcher's buckets are the
-archive's.
+archive's; it runs in one process.
+
+**Across ranks.** The live model is served over the (data, model) world of
+``make_training_mesh(cfg, max_batch)``, as the JAX server builds its mesh
+(``common.enter_world``: ``framework.mesh.data`` clamped to divide
+``--max-batch``, T = ``framework.mesh.model``); with more than one rank and
+no launcher this process starts them, waits, and passes a SIGTERM on.
+Rank 0 owns the HTTP server and the batcher. Each device step it announces
+by a header (``parallel.distributed.broadcast_header``) and broadcasts the
+bucket; every rank takes its data index's rows by ``shard_batch``'s rule (a
+contiguous block where the bucket divides over the data indices; else the
+whole bucket, on data index 0 alone), runs the predict step on them with
+its model group's Megatron share of the model, and each data index's model
+rank 0 sends its rows to rank 0 when rank 0 announces the fetch. The other
+ranks ``follow()`` rank 0's headers in order, so the double-buffered
+batcher's dispatch of step k+1 before the fetch of step k is kept; an idle
+batcher announces a heartbeat well inside the process group's timeout. At
+SIGTERM rank 0 stops the HTTP server and announces the stop, and every rank
+exits 0, each printing the device steps it took a bucket with their kernel
+launches. One process runs the path above unchanged, with no collective.
 """
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import os
 import queue
+import signal
 import threading
 import time
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops import kernels
+from ..parallel import distributed
 from ..train.checkpoint import checkpoint_path
 from ..train.trainer import make_predict_step
-from .common import (bootstrap_model, live_missing_keys, parse_config, resolve_paths,
-                     set_float32_precision)
+from .common import (bootstrap_world_model, enter_world, live_missing_keys, parse_config,
+                     resolve_paths, set_float32_precision, world_line)
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _NPY_MAGIC = b"\x93NUMPY"
@@ -87,6 +111,10 @@ class DynamicBatcher:
     so the device never sits idle between coalesced steps under load. With only
     the synchronous ``predict_many``, dispatch degrades to compute-and-hold
     (same semantics, no overlap).
+
+    ``on_idle``, called on the batcher's thread whenever no request has come
+    for ``idle_s`` seconds and nothing is in flight, lets a serving world
+    keep its followers' collectives inside their timeout.
     """
 
     def __init__(
@@ -99,6 +127,8 @@ class DynamicBatcher:
         request_timeout_s: float = 300.0,
         predict_dispatch: Optional[Callable] = None,
         predict_fetch: Optional[Callable] = None,
+        on_idle: Optional[Callable[[], None]] = None,
+        idle_s: Optional[float] = None,
     ):
         self._predict_many = predict_many
         if predict_dispatch is not None:
@@ -119,6 +149,7 @@ class DynamicBatcher:
         # A waiter that gives up leaves its item in flight, so the device
         # step runs for nobody: keep the default generous.
         self.request_timeout_s = float(request_timeout_s)
+        self._on_idle, self._idle_s = on_idle, (idle_s if on_idle is not None else None)
         self._q: "queue.Queue[Optional[_Item]]" = queue.Queue()
         self._lock = threading.Lock()
         self.stats = {"requests": 0, "device_steps": 0, "max_coalesced": 0}
@@ -158,7 +189,11 @@ class DynamicBatcher:
         pending = None  # (items, handle): dispatched, results not yet fetched
         while True:
             if pending is None:
-                first = self._q.get()
+                try:
+                    first = self._q.get(timeout=self._idle_s)
+                except queue.Empty:
+                    self._idle()
+                    continue
             else:
                 # A batch is in flight on the device: wait briefly for the
                 # head of the next batch so it can be dispatched back-to-back;
@@ -196,6 +231,15 @@ class DynamicBatcher:
                 if pending is not None:
                     self._complete(*pending)
                 return
+
+    def _idle(self):
+        """``on_idle``; a failure is printed and the thread goes on (a dead
+        thread would leave every later request timing out): the next step
+        meets it too and fails its requests."""
+        try:
+            self._on_idle()
+        except Exception:
+            traceback.print_exc()
 
     def _dispatch(self, items: Sequence[_Item]):
         """Pad ``items`` to a bucket and enqueue the device step. EVERYTHING
@@ -241,7 +285,11 @@ class DynamicBatcher:
 class DepthService:
     """Model + bucketed predict step on ``device``; owns decode to native size.
     With ``predict_many`` (an exported archive's ``ExportedPredictor.predict``)
-    there is no model: that function is the device step, run synchronously."""
+    there is no model: that function is the device step, run synchronously.
+
+    In a world of more than one process (the module docstring) every rank
+    builds one over its share of the model: rank 0's batcher announces each
+    step to the others, which run ``follow()``; they have no batcher."""
 
     def __init__(self, model, cfg, device="cuda", max_batch: int = 8,
                  window_ms: float = 5.0, request_timeout_s: float = 300.0,
@@ -252,19 +300,27 @@ class DepthService:
         self.model_name = str(cfg.experiment.model_name)
         self.model = model
         self._predict_impl = predict_many
+        self.buckets = _buckets(max_batch)
+        self.world = predict_many is None and distributed.is_multiprocess()
+        # device steps this rank took since warmup() a bucket, with their launches
+        self.served: dict = {}
         dispatch = fetch = None
         if predict_many is None:
             self._step = make_predict_step(model, cfg)
         if predict_many is None and pipeline:
             # async dispatch/fetch pair: the batcher admits and dispatches
             # batch k+1 while batch k is still in flight on the device.
-            dispatch, fetch = self._predict_dispatch, self._predict_fetch
-        self.batcher = DynamicBatcher(
-            self._predict_many, max_batch, window_ms,
-            item_shape=(*self.native, 3), item_dtype=np.uint8,
-            request_timeout_s=request_timeout_s,
-            predict_dispatch=dispatch, predict_fetch=fetch,
-        )
+            dispatch, fetch = ((self._world_dispatch, self._world_fetch) if self.world
+                               else (self._predict_dispatch, self._predict_fetch))
+        self.batcher = None
+        if not self.world or distributed.is_primary():
+            self.batcher = DynamicBatcher(
+                self._predict_many, max_batch, window_ms,
+                item_shape=(*self.native, 3), item_dtype=np.uint8,
+                request_timeout_s=request_timeout_s,
+                predict_dispatch=dispatch, predict_fetch=fetch,
+                on_idle=self._world_idle if self.world else None,
+                idle_s=distributed.GROUP_TIMEOUT.total_seconds() / 4)
 
     # -- device path -------------------------------------------------------
     def _predict_dispatch(self, rgb_u8: np.ndarray) -> torch.Tensor:
@@ -278,14 +334,97 @@ class DepthService:
     def _predict_many(self, rgb_u8: np.ndarray) -> np.ndarray:
         if self._predict_impl is not None:
             return np.asarray(self._predict_impl(rgb_u8))
+        if self.world:
+            return self._world_fetch(self._world_dispatch(rgb_u8))
         return self._predict_fetch(self._predict_dispatch(rgb_u8))
 
     def warmup(self):
         """Run every bucket once, so no request pays for first-use set-up
-        (kernel build, allocator growth, cuDNN algorithm choice)."""
+        (kernel build, allocator growth, cuDNN algorithm choice). In a world
+        every rank calls it: rank 0 runs each bucket through the world's
+        collectives, which the others follow."""
         h, w = self.native
-        for b in self.batcher.buckets:
-            self._predict_many(np.zeros((b, h, w, 3), np.uint8))
+        if self.world and not distributed.is_primary():
+            self.follow(fetches=len(self.buckets))
+        else:
+            for b in self.buckets:
+                self._predict_many(np.zeros((b, h, w, 3), np.uint8))
+        self.served = {}
+
+    # -- the world's device path (rank 0 on the batcher's thread) -----------
+    def _world_dispatch(self, rgb_u8: np.ndarray):
+        """Announce a step, broadcast its bucket, enqueue this rank's share."""
+        distributed.broadcast_header(distributed.SERVE_PREDICT, len(rgb_u8), self.device)
+        return self._share(distributed.broadcast_bucket(rgb_u8, rgb_u8.shape, self.device))
+
+    def _world_fetch(self, handle) -> np.ndarray:
+        """Announce the fetch of the oldest step in flight and gather its rows;
+        a step that failed on this rank still takes part, then raises."""
+        distributed.broadcast_header(distributed.SERVE_FETCH, 0, self.device)
+        out = self._gather(handle)
+        if handle[2] is not None:
+            raise handle[2]
+        return out.cpu().numpy()
+
+    def _world_idle(self) -> None:
+        distributed.broadcast_header(distributed.SERVE_IDLE, 0, self.device)
+
+    def _share(self, bucket: torch.Tensor):
+        """(bucket size, this rank's rows predicted or None where it takes
+        none, the error its step raised on rank 0), with the step's kernel
+        launches counted under its bucket. A step that fails on another rank
+        raises: that rank exits, and the launcher stops the world."""
+        size = len(bucket)
+        rows = distributed.bucket_rows(size)
+        if rows is None:  # runs whole on data index 0
+            rows = (0, size) if distributed.data_index() == 0 else None
+        before = kernels.launch_counts()
+        out = error = None
+        try:
+            if rows is not None:
+                out = self._step(bucket[rows[0]:rows[1]].to(self.device))
+        except Exception as e:
+            if not distributed.is_primary():
+                raise
+            # rank 0 keeps the world's order: it fetches this step, then fails it
+            out = torch.zeros((rows[1] - rows[0], *self.native), device=self.device)
+            error = e
+        after = kernels.launch_counts()
+        entry = self.served.setdefault(str(size), {"steps": 0, "launches": {}})
+        entry["steps"] += 1
+        for name, n in after.items():
+            if n != before[name]:
+                entry["launches"][name] = entry["launches"].get(name, 0) + n - before[name]
+        return size, out, error
+
+    def _gather(self, handle) -> Optional[torch.Tensor]:
+        """The step's rows on rank 0, from each data index's model rank 0
+        (data index 0's alone for a bucket that runs whole); None elsewhere."""
+        size, out, _ = handle
+        if distributed.model_index() != 0:
+            return None
+        if distributed.bucket_rows(size) is None:
+            return out
+        return distributed.gather_rows(out, self.device)
+
+    def follow(self, fetches: Optional[int] = None) -> None:
+        """A rank other than 0: take part in every step rank 0 announces, in
+        its order, until it announces the stop (or, with ``fetches``, until
+        that many steps were fetched). Steps dispatched and not yet fetched
+        wait in a FIFO, as they do in rank 0's double-buffered batcher."""
+        h, w = self.native
+        inflight = collections.deque()
+        while fetches is None or fetches > 0:
+            op, size = distributed.broadcast_header(0, 0, self.device)
+            if op == distributed.SERVE_STOP:
+                return
+            if op == distributed.SERVE_PREDICT:
+                bucket = distributed.broadcast_bucket(None, (size, h, w, 3), self.device)
+                inflight.append(self._share(bucket))
+            elif op == distributed.SERVE_FETCH:
+                self._gather(inflight.popleft())
+                if fetches is not None:
+                    fetches -= 1
 
     # -- host path ---------------------------------------------------------
     def decode(self, body: bytes) -> np.ndarray:
@@ -335,7 +474,13 @@ class DepthService:
         return buf.getvalue(), coalesced
 
     def close(self):
-        self.batcher.close()
+        """Stop the batcher; rank 0 of a world then announces the stop to the
+        other ranks, from this thread once the batcher's has ended."""
+        if self.batcher is not None:
+            self.batcher.close()
+        if self.world and distributed.is_primary():
+            self.batcher._thread.join()  # its last collective ends before the stop's
+            distributed.broadcast_header(distributed.SERVE_STOP, 0, self.device)
 
 
 def make_handler(service: DepthService):
@@ -407,6 +552,9 @@ def make_handler(service: DepthService):
 def build_service(cfg, device="cuda", max_batch: int = 8, window_ms: float = 5.0,
                   warmup: bool = True, request_timeout_s: float = 300.0,
                   allow_uninitialized: bool = False, pipeline: bool = True) -> DepthService:
+    """The live service on ``device``; in a world every rank calls it and
+    gets its share of the model (``bootstrap_world_model``), and ``warmup``
+    runs on every rank together."""
     set_float32_precision()
     paths = resolve_paths(cfg)
     ckpt = checkpoint_path(paths["results_dir"], cfg.experiment.model_name)
@@ -418,7 +566,7 @@ def build_service(cfg, device="cuda", max_batch: int = 8, window_ms: float = 5.0
             "initialized model (pass allow_uninitialized=True / "
             "--allow-uninitialized to override)"
         )
-    model, report = bootstrap_model(cfg, device, checkpoint=ckpt)
+    model, report = bootstrap_world_model(cfg, device, checkpoint=ckpt)
     if report is not None:
         missing = live_missing_keys(model, report)
         if missing:
@@ -464,7 +612,7 @@ def build_service_from_exported(cfg, artifact_path: str, device="cuda", window_m
     return service
 
 
-def main():
+def main(argv=None):
     def extra(p):
         p.add_argument("--host", default="127.0.0.1")
         p.add_argument("--port", type=int, default=8000)
@@ -484,27 +632,40 @@ def main():
                        help="disable double-buffered batch dispatch (batches "
                             "then run strictly one at a time)")
 
-    cfg, args = parse_config("Depth inference server", extra=extra)
+    cfg, args = parse_config("Depth inference server", extra=extra, argv=argv)
+    world = None
     if args.exported:
         service = build_service_from_exported(cfg, args.exported, args.device, args.window_ms,
                                               warmup=not args.no_warmup,
                                               request_timeout_s=args.request_timeout)
     else:
-        service = build_service(cfg, args.device, args.max_batch, args.window_ms,
+        world = enter_world(cfg, args, "mde_tpu_torch.tools.serve", argv,
+                            batch_size=args.max_batch)
+        if world is None:
+            return  # the ranks served in their own processes and exited 0
+        service = build_service(cfg, world.device, args.max_batch, args.window_ms,
                                 warmup=not args.no_warmup,
                                 request_timeout_s=args.request_timeout,
                                 allow_uninitialized=args.allow_uninitialized,
                                 pipeline=not args.no_pipeline)
+        if service.world and not distributed.is_primary():
+            # rank 0 stops the world: a signal passed on by the launcher waits for it
+            for s in (signal.SIGTERM, signal.SIGINT):
+                signal.signal(s, signal.SIG_IGN)
+            service.follow()
+            _stopped(service)
+            return
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
-
-    import signal
 
     def _term(signum, frame):  # production supervisors stop with SIGTERM
         threading.Thread(target=server.shutdown, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _term)
-    print(f"serving {service.model_name} on http://{args.host}:{args.port} "
-          f"(device {service.device}, buckets {service.batcher.buckets})")
+    if service.world:
+        signal.signal(signal.SIGINT, _term)  # the stop goes through the world in order
+    print(f"serving {service.model_name} on http://{args.host}:{server.server_address[1]} "
+          f"(device {service.device}{world_line(world) if world else ''}, "
+          f"buckets {service.batcher.buckets})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -512,6 +673,15 @@ def main():
     finally:
         service.close()
         server.server_close()
+    if service.world:
+        _stopped(service)
+
+
+def _stopped(service: DepthService) -> None:
+    """A rank's last line: its device steps and their kernel launches by
+    bucket, written whole (the ranks share their launcher's output)."""
+    print(f"rank {distributed.process_index()} stopped; steps by bucket "
+          f"{json.dumps(service.served, sort_keys=True)}\n", end="", flush=True)
 
 
 if __name__ == "__main__":
