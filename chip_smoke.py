@@ -151,10 +151,11 @@ Phases, each printing JSON lines:
               model's own softmaxes only); DPT_Large's archive served by
               ``python -m mde_tpu_torch.tools.serve --exported`` to
               concurrent clients, its replies against the live step, then
-              stopped with SIGTERM. Paths ``export_<model>``.
+              stopped with SIGTERM. Paths ``export_<model>``. It runs in a
+              process of its own (``--export-only``) beside phases 4-8.
  11. examples the three port examples (examples/torch_*.py) at once, each a
               child process on the card with --epochs 1 on the data it
-              generates, started beside phase 12 and collected after it:
+              generates, started beside phases 4-8 and collected after them:
               exit 0, finite losses, their predictions, CSV or checkpoint,
               their seconds and their launches (paths ``examples_<name>``).
  12. parallel data-parallel training (mde_tpu_torch/parallel): W ranks, one
@@ -193,12 +194,30 @@ Phases, each printing JSON lines:
               as a user starts it, its checkpoint the full grammar, loaded
               into one process whose predictions equal the ranks'. K1 and
               K4 run on a rank's heads (the kernels phase times them there:
-              TP_CASES). Paths ``tp_flagship``, ``tp_da2``.
+              TP_CASES). Then the training CLI at framework.mesh.model=2
+              on Swin2-T (TP_ZOO_CLI) for one epoch, its checkpoint loaded
+              into one process as the flagship's; then, once the
+              data-parallel ranks and CLI are done, the zoo (TP_ZOO): one
+              loader DPT a trunk family (BEiT-B/384, Swin-L/384 V1,
+              Swin2-T/256 V2, Next-ViT-L/384) at published widths and the
+              loader's input size, in the (1, 2) world in float32 at
+              learning rate 0, TP_ZOO_STEPS steps at global batch
+              TP_ZOO_BATCH against the one-process steps (computed in this
+              process beside the ranks) at phase 12's float32 bounds, the
+              gradient's split by trunk part and the attention inputs'
+              (``norm1``, ``cpb_mlp.0``, ``proj1_bn``) printed, the
+              per-head parameters (bias tables, q and v biases, logit
+              scales, drawn head by head) held on their own at
+              TOL_TP_HEADS, K3's train
+              form 1 and K2 1 + 1 a rank a step, each rank's parameter
+              bytes and peak MiB; BEiT-B's sharded checkpoint restored in
+              one process. Paths ``tp_flagship``, ``tp_da2``, ``tp_zoo``.
  14. serve_world the server and the offline tools over (data, model)
-              worlds: the serving worlds in a thread beside phase 10
-              (beside phases 11-13 the ranks of all three ran the card out
-              of memory), the tools in another beside phase 9. Serving: the
-              serve phase's weights at --max-batch 8. First, in this process: the
+              worlds: the serving worlds in a thread beside phases 4-8
+              (beside phases 12-13 their ranks, those phases' and the
+              examples' ran the card out of memory), the tools in another
+              beside phase 9. Serving: the serve phase's weights at
+              --max-batch 8. First, in this process: the
               one-process predict step on groups of 1, 2, 4 and 8 frames at
               426x560 (each group fills its bucket), and the same groups
               through build_service and the HTTP handler (the yardstick).
@@ -206,21 +225,24 @@ Phases, each printing JSON lines:
               starts it (its launcher starts the ranks: one card a rank over
               NCCL where the host has a card for each, else sharing card 0
               over gloo) at SERVE_WORLDS: the flagship at (2, 1), (1, 2) and
-              (2, 2), DA-V2-S at (1, 2). Each group is posted twice at once
+              (2, 2), DA-V2-S and Swin2-T/256 at (1, 2) (Swin2-T's first
+              stage of 3 heads whole on each rank). Each group is posted
+              twice at once
               on connections opened first: every reply against the
               one-process predict step within the serve phase's bound,
               ``X-Batch-Size`` (a group split by the 50 ms window is posted
               again, at most three times), the round trip ms by bucket; then
               SIGTERM to the launcher: exit 0 and every rank's stop line,
               whose steps and launches by bucket must be the replies' steps,
-              each K3 1, K1 1 (flagship) and K4 12 on the rank's heads where
-              the rank holds rows of the bucket (bucket 1 runs whole on data
-              index 0 when it does not split), none elsewhere. Tools: the
+              each K3 1, K1 1 (flagship) and K4 12 (flagship, DA-V2-S) on
+              the rank's heads where the rank holds rows of the bucket
+              (bucket 1 runs whole on data index 0 when it does not split),
+              none elsewhere. Tools: the
               evaluation tool and the prediction dump on generated data and
               the flagship's weights, each started as a user starts it, as
               one process and at (2, 2): the world's metrics, files and CSV
               rows against one process's. Paths ``serve_world_flagship``,
-              ``serve_world_da2``.
+              ``serve_world_da2``, ``serve_world_dpt_swin2_tiny_256``.
 Then a line with the whole script's seconds, a line with every kernel's
 numbers and its launches by path (a train path's are those of its checks
 (a), (b) and (c); a tools path's those of its three tools; an export path's
@@ -233,6 +255,7 @@ It exits non-zero at once where no CUDA device is visible.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import io
 import json
@@ -398,6 +421,11 @@ KERNEL_NAMES = {
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was printed
+    (``at_s``, the script's seconds), so that the lines of phases run side
+    by side give their timeline."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1326,11 +1354,24 @@ def check_path_launches(path: str, launches: dict, what: str, skip=()) -> None:
             check(count > 0, f"{kernel} was not launched {what}")
 
 
+def model_sets(name: str) -> tuple:
+    """A model's ``--set``s beyond the defaults: DA-V2-S's, a loader DPT's
+    ``model_type`` (the config takes its row's input size); the flagship's
+    none."""
+    from mde_tpu_torch.models.model_loader import DEFAULT_MODELS
+
+    if name == "da2":
+        return DA2_SETS
+    if name in DEFAULT_MODELS:
+        return (f"model.model_type={name}",)
+    return ()
+
+
 def model_cfg(name: str, *sets: str):
     """The config a user gets from the CLI with the model's ``--set``s."""
     from mde_tpu_torch.tools.common import parse_config
 
-    extra = DA2_SETS if name == "da2" else ()
+    extra = model_sets(name)
     cfg, _ = parse_config("chip_smoke", argv=[a for x in extra + sets for a in ("--set", x)])
     return cfg
 
@@ -1391,7 +1432,7 @@ def phase_serve(name: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cfg = model_cfg(name, f"paths.results_dir={tmp}")
         ckpt = checkpoint_path(tmp, cfg.experiment.model_name)
-        save_checkpoint(ckpt, make_model(name, cfg, bias=0.5 if name == "da2" else 0.0))
+        save_checkpoint(ckpt, make_model(name, cfg, bias=0.0 if name == "flagship" else 0.5))
 
         # torch's defaults; the server must run float32 with TF32 off
         torch.backends.cudnn.allow_tf32 = True
@@ -1780,7 +1821,6 @@ def phase_tools(name: str, tmp: str, sets: tuple, c_predictions: dict) -> dict:
 
 def _run_tools(name: str, tmp: str, sets: tuple, c_predictions: dict) -> dict:
     import base64
-    import contextlib
     import csv
     import importlib.util
     import zlib
@@ -2535,8 +2575,6 @@ def _zoo_train(name: str, cfg16, cfg32, model, witness: bool = True) -> dict:
 def _zoo_cli(name: str, sets: tuple) -> dict:
     """The training CLI for one epoch on generated data, then the evaluation
     tool on the checkpoint it wrote (the reference grammar's ``.pth``)."""
-    import contextlib
-
     from mde_tpu_torch.data import synthetic
     from mde_tpu_torch.tools import evaluation
     from mde_tpu_torch.tools import main as train_cli
@@ -2610,7 +2648,7 @@ def phase_zoo(name: str, sets: tuple) -> dict:
     # MidasNet's float32 gradient 0.36 rel-L2 from the plain step's on an H100
     with torch.no_grad():
         final_depth_conv(model).bias.add_(1.5)
-    total.update(_zoo_train(name, cfg16, model_cfg(name, *sets, "framework.compute_dtype=float32"),
+    total.update(_zoo_train(name, cfg16, model_cfg(name, "framework.compute_dtype=float32"),
                             model.cuda()))
     if name == ZOO_CLI:
         total.update(_zoo_cli(name, sets))
@@ -2673,8 +2711,7 @@ def phase_zoo_loader(name: str) -> dict:
           "input_size": list(size), "transform_out": list(x.shape),
           "pred": list(pred.shape), "params": sum(p.numel() for p in model.parameters())})
     check(bool(torch.isfinite(pred).all()), f"zoo {name}: non-finite map on the transform's output")
-    sets = (f"framework.input_size=[{size[0]},{size[1]}]",)
-    cfg = model_cfg(name, *sets)
+    cfg = model_cfg(name)
 
     def start():
         service = DepthService(model, cfg, "cuda", max_batch=2, window_ms=20.0)
@@ -2687,7 +2724,7 @@ def phase_zoo_loader(name: str) -> dict:
     torch.cuda.empty_cache()
     with torch.no_grad():
         final_depth_conv(model).bias.add_(1.5)  # 2 above SEED's, as the factory's
-    total.update(_zoo_train(name, cfg, model_cfg(name, *sets, "framework.compute_dtype=float32"),
+    total.update(_zoo_train(name, cfg, model_cfg(name, "framework.compute_dtype=float32"),
                             model, witness=False))
     torch.cuda.empty_cache()
     total = {k: total.get(k, 0) for k in read_counts()}
@@ -2863,8 +2900,7 @@ def phase_export_zoo() -> dict:
                 torch.cuda.empty_cache()
             for name in EXPORT_ZOO_LOADER:
                 model, size, _ = loader_model(name, bias=0.5)
-                cfg = model_cfg(name, f"framework.input_size=[{size[0]},{size[1]}]",
-                                f"experiment.model_name={name}")
+                cfg = model_cfg(name, f"experiment.model_name={name}")
                 archive = os.path.join(tmp, f"{name}.mdex")
                 reset_counts()
                 t0 = time.perf_counter()
@@ -2931,6 +2967,56 @@ def phase_export_zoo() -> dict:
     return by_path
 
 
+def start_export_zoo() -> dict:
+    """``phase_export_zoo`` in a process of its own (``chip_smoke.py
+    --export-only``, in a session of its own with the processes it starts),
+    so that it runs beside this process's phases: its launches are counted
+    in that process. Collect it with ``finish_export_zoo``."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_zoo_run_")
+    out, err = open(os.path.join(tmp, "out.log"), "w"), open(os.path.join(tmp, "err.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--export-only"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out,
+                            stderr=err, start_new_session=True)
+    out.close()
+    err.close()
+    return {"tmp": tmp, "proc": proc, "t0": time.perf_counter()}
+
+
+def stop_export_zoo(run: dict) -> None:
+    """Kill what is left of ``start_export_zoo``'s process and its children
+    and remove its directory."""
+    import shutil
+
+    if run["proc"].poll() is None:
+        _kill_session(run["proc"])
+    shutil.rmtree(run["tmp"], ignore_errors=True)
+
+
+def finish_export_zoo(run: dict) -> dict:
+    """Wait for ``start_export_zoo``'s process: exit 0; its export_zoo lines
+    printed here; the launches by path it counted."""
+    try:
+        rc = run["proc"].wait(timeout=900)
+        out = open(os.path.join(run["tmp"], "out.log")).read()
+        err = open(os.path.join(run["tmp"], "err.log")).read()
+        check(rc == 0, f"export_zoo (its own process) exited {rc}:\n{out[-3000:]}\n{err[-3000:]}")
+        lines = []
+        for line in out.splitlines():
+            if line.startswith("{"):
+                try:
+                    lines.append(json.loads(line))
+                except ValueError:  # a line another module printed
+                    pass
+        for line in lines:
+            if line.get("phase") == "export_zoo":
+                print(json.dumps(line), flush=True)  # its at_s: seconds since that process began
+        check("export_zoo_launches" in lines[-1], f"export_zoo printed last {lines[-1]}")
+        emit({"phase": "export_zoo", "own_process_started_at_s": run["t0"] - T0})
+        return lines[-1]["export_zoo_launches"]
+    finally:
+        stop_export_zoo(run)
+
+
 # The examples phase: each port example (examples/torch_*.py) on its
 # generated data for one epoch on the card, with the path's launches; their
 # outputs, as each writes them (relative to its working directory).
@@ -2995,8 +3081,8 @@ def start_examples() -> dict:
     card with ``--epochs 1`` on the dataset it generates (32 train and 8 test
     pairs at 426x560, under its own directory), wandb off (WANDB_MODE, as
     README says for a machine without network). Collect them with
-    ``finish_examples``; the full script runs them beside the parallel
-    phase, whose checks hold no times."""
+    ``finish_examples``; the full script runs them beside the flagship's and
+    DA-V2-S's phases, whose checks hold no times."""
     repo = os.path.dirname(os.path.abspath(__file__))
     run = {"tmp": tempfile.TemporaryDirectory(prefix="chip_smoke_examples_"), "procs": {},
            "t0": time.perf_counter()}
@@ -3126,8 +3212,6 @@ def phase_op_dispatch() -> dict:
 # 0.0023) stands in below it. A gradient of zeros, or of the wrong rows,
 # reads about 1 or more.
 PARALLEL_RUNS = (("flagship", "float32"), ("flagship", "bfloat16"), ("da2", "bfloat16"))
-# Each model's ``--set``s in the ranks' jobs and the CLIs of both phases.
-PARALLEL_SETS = {"flagship": (), "da2": DA2_SETS}
 PARALLEL_STEPS = 3
 PARALLEL_BF16_GRAD, PARALLEL_BF16_GRAD_FLOOR = 1.5, 0.01
 # Each rank's launches a step: K3's train form, K2 forward and backward, K4
@@ -3249,7 +3333,7 @@ def phase_parallel(data_parallel: bool = True, tensor_parallel: bool = True) -> 
         for name, dtype in PARALLEL_RUNS:
             label = f"{name}_{dtype}"
             extra = (f"framework.compute_dtype={dtype}", "framework.learning_rate=0")
-            sets = list(PARALLEL_SETS[name] + extra)
+            sets = list(model_sets(name) + extra)
             cfg = model_cfg(name, *extra)
             model = make_model(name, cfg, bias=0.5 if name == "da2" else 2.0)
             torch.save(model, os.path.join(tmp, f"{name}.pt"))
@@ -3259,13 +3343,13 @@ def phase_parallel(data_parallel: bool = True, tensor_parallel: bool = True) -> 
                          "generators": gens, "grads": True})
         data = os.path.join(tmp, "data")
         synthetic.generate(data, n_train=16, n_test=5, size=TRAIN_SHAPE[1:], seed=SEED)
-        fit_sets = [*PARALLEL_SETS["flagship"], f"paths.data_dir={data}",
+        fit_sets = [f"paths.data_dir={data}",
                     f"paths.results_dir={tmp}/fit/results",
                     f"paths.predictions_dir={tmp}/fit/predictions", "training.n_epoch=2",
                     "framework.learning_rate=0", "experiment.wandb_disable=true"]
         float64_job = {"name": "flagship_float64", "mode": "steps",
                        "model": os.path.join(tmp, "flagship.pt"),
-                       "sets": [*PARALLEL_SETS["flagship"], "framework.compute_dtype=float32"],
+                       "sets": ["framework.compute_dtype=float32"],
                        "batches": os.path.join(tmp, "batches.pt"),
                        "generators": gens[:PARALLEL_F64_STEPS], "float64": True, "plain": True}
         step_jobs = {job["name"]: job for job in jobs + [float64_job]}
@@ -3276,40 +3360,80 @@ def phase_parallel(data_parallel: bool = True, tensor_parallel: bool = True) -> 
         torch.save(bn_input, os.path.join(tmp, "bn_bf16.pt"))
         jobs.append({"name": "bn_bf16", "mode": "batchnorm",
                      "input": os.path.join(tmp, "bn_bf16.pt")})
-        def ranks():
-            got, ranks_s = None, None
-            if data_parallel:
-                t0 = time.perf_counter()
-                got = launch.run({"world": world, "device": device, "out": tmp, "threads": 4,
-                                  "jobs": jobs}, os.path.join(tmp, "spec.json"), timeout=900,
-                                 backend=backend)
-                ranks_s = time.perf_counter() - t0
-            # a world of one over NCCL through the same DDP code, the BN layers
-            # in the cross-process form: each run's noise witness
-            world1 = launch.run({"world": 1, "device": "cuda", "out": tmp, "jobs": [
-                {**job, "name": f"world1_{job['name']}"} for job in jobs[:len(runs)]]},
-                os.path.join(tmp, "spec1.json"), timeout=300, backend="nccl")
-            return got, ranks_s, world1
+        at_s = {}  # the script's seconds at each step of the phase (its timeline line)
 
-        tasks = [start_tensor_parallel(tmp, step_jobs, data)] if tensor_parallel else []
+        def mark(event: str) -> None:
+            at_s[event] = time.perf_counter() - T0
+
+        def ranks():
+            got, ranks_s, cli = None, None, None
+            try:
+                if data_parallel:
+                    t0 = time.perf_counter()
+                    got = launch.run({"world": world, "device": device, "out": tmp,
+                                      "threads": 4, "jobs": jobs},
+                                     os.path.join(tmp, "spec.json"), timeout=900,
+                                     backend=backend)
+                    ranks_s = time.perf_counter() - t0
+                    mark("data_parallel_ranks_done")
+                # a world of one over NCCL through the same DDP code, the BN
+                # layers in the cross-process form: each run's noise witness
+                world1 = launch.run({"world": 1, "device": "cuda", "out": tmp, "jobs": [
+                    {**job, "name": f"world1_{job['name']}"} for job in jobs[:len(runs)]]},
+                    os.path.join(tmp, "spec1.json"), timeout=300, backend="nccl")
+                mark("world1_done")
+                if data_parallel:  # the CLI at W beside this process's one-process steps
+                    cli = _data_parallel_cli(tmp, data, world, device, backend)
+                    mark("data_parallel_cli_done")
+                return got, ranks_s, world1, cli
+            finally:
+                data_parallel_done.set()  # the zoo's model ranks may start
+
+        # the zoo's models are built here after the one-process steps, while
+        # the ranks run, and their one-process steps taken; the
+        # tensor_parallel thread waits for those, and for the data-parallel
+        # ranks and CLI to end: its ranks reserve 20-37 GB each, too much
+        # beside them
+        zoo, zoo_ready, zoo_refs = {}, threading.Event(), {}
+        data_parallel_done = threading.Event()
+        zoo_batches = [{k: v[:TP_ZOO_BATCH] for k, v in b.items()} for b in batches]
+        torch.save(zoo_batches, os.path.join(tmp, "tp_zoo_batches.pt"))
+        tasks = ([start_tensor_parallel(tmp, step_jobs, data, zoo,
+                                        (zoo_ready, data_parallel_done),
+                                        os.path.join(tmp, "tp_zoo_batches.pt"))]
+                 if tensor_parallel else [])
         try:  # every thread is joined on every way out of the directory
             reset_counts()
             tasks.append(Background(ranks))
             refs = _one_process_refs(runs, batches)  # in this process, beside the ranks
+            mark("one_process_refs_done")
+            if tensor_parallel:
+                try:
+                    zoo.update(_tp_zoo_models(tmp))
+                    mark("zoo_models_built")
+                    zoo_refs = _tp_zoo_refs(zoo, zoo_batches)
+                    mark("zoo_refs_done")
+                finally:
+                    zoo_ready.set()
             refs_launches = read_counts()
-            got, ranks_s, world1 = tasks[-1].result()
+            got, ranks_s, world1, cli = tasks[-1].result()
             check(read_counts() == refs_launches, "the main process launched a kernel while "
                   "the ranks ran, other than the one-process steps'")
             if data_parallel:
                 _check_data_parallel_runs(out, runs, refs, got, world1, bn_input, total)
-                _check_data_parallel_end(out, refs, got, world1, tmp, data, ranks_s)
+                _check_data_parallel_end(out, refs, got, world1, tmp, ranks_s, cli)
                 check_path_launches("parallel", total, "by the ranks' train steps")
                 by_path["parallel"] = total
         finally:
+            zoo_ready.set()
+            data_parallel_done.set()
             for task in tasks:
                 task.wait()
         if tensor_parallel:
-            by_path.update(finish_tensor_parallel(tasks[0], runs, refs, world1, batches, tmp))
+            by_path.update(finish_tensor_parallel(tasks[0], runs, refs, world1, batches, tmp,
+                                                  zoo, zoo_refs))
+        mark("checked")
+        emit({"phase": "parallel", "run": "timeline", "at_s_by_event": at_s})
     return by_path
 
 
@@ -3332,12 +3456,33 @@ def _check_data_parallel_runs(out, runs, refs, got, world1, bn_input, total) -> 
     _check_parallel_bn(bn_input, got["bn_bf16"])
 
 
-def _check_data_parallel_end(out, refs, got, world1, tmp, data, ranks_s) -> None:
-    """Phase 12's fit on W ranks, its world of one, then the training CLI at
-    W, which starts its own ranks."""
+def _data_parallel_cli(tmp: str, data: str, world: int, device: str, backend: str) -> tuple:
+    """The training CLI at W for 2 epochs on ``data``, which starts its own
+    ranks: (what its ``main`` returned, its seconds)."""
     from mde_tpu_torch.tools import main as train_cli
 
-    world, device, backend = out["world"], out["device"], out["backend"]
+    argv = ["--device", device, "--data-dir", data,
+            *(a for x in ("training.n_epoch=2", f"framework.mesh.data={world}",
+                          f"paths.results_dir={tmp}/cli/results",
+                          f"paths.predictions_dir={tmp}/cli/preds",
+                          "experiment.wandb_disable=true")
+              for a in ("--set", x))]
+    saved = os.environ.get("MDE_DIST_BACKEND")
+    os.environ["MDE_DIST_BACKEND"] = backend
+    t0 = time.perf_counter()
+    try:
+        returned = train_cli.main(argv)
+    finally:
+        if saved is None:
+            os.environ.pop("MDE_DIST_BACKEND")
+        else:
+            os.environ["MDE_DIST_BACKEND"] = saved
+    return returned, time.perf_counter() - t0
+
+
+def _check_data_parallel_end(out, refs, got, world1, tmp, ranks_s, cli: tuple) -> None:
+    """Phase 12's fit on W ranks, its world of one, then the training CLI at
+    W (``cli``: ``_data_parallel_cli``'s result)."""
     fit = got["fit"]
     hist = [r["history"] for r in fit]
     ckpts = sorted(f for f in os.listdir(f"{tmp}/fit/results") if f.endswith(".pth"))
@@ -3371,28 +3516,9 @@ def _check_data_parallel_end(out, refs, got, world1, tmp, data, ranks_s) -> None
     check(abs(loss0 - want0) <= TOL_TRAIN_LOSS * abs(want0),
           f"NCCL world of one: loss {loss0} vs one process {want0}")
 
-    # the training CLI at W, which starts its own ranks
-    cli_results = os.path.join(tmp, "cli", "results")
-    pred_dir = os.path.join(tmp, "cli", "preds")
-    argv = ["--device", device, "--data-dir", data,
-            *(a for x in ("training.n_epoch=2", f"framework.mesh.data={world}",
-                          f"paths.results_dir={cli_results}",
-                          f"paths.predictions_dir={pred_dir}",
-                          "experiment.wandb_disable=true", *PARALLEL_SETS["flagship"])
-              for a in ("--set", x))]
-    saved = os.environ.get("MDE_DIST_BACKEND")
-    os.environ["MDE_DIST_BACKEND"] = backend
-    t0 = time.perf_counter()
-    try:
-        returned = train_cli.main(argv)
-    finally:
-        if saved is None:
-            os.environ.pop("MDE_DIST_BACKEND")
-        else:
-            os.environ["MDE_DIST_BACKEND"] = saved
-    cli_s = time.perf_counter() - t0
-    ckpts = sorted(f for f in os.listdir(cli_results) if f.endswith(".pth"))
-    preds = sorted(os.listdir(pred_dir))
+    returned, cli_s = cli
+    ckpts = sorted(f for f in os.listdir(f"{tmp}/cli/results") if f.endswith(".pth"))
+    preds = sorted(os.listdir(f"{tmp}/cli/preds"))
     emit({**out, "run": "cli", "seconds": cli_s, "checkpoints": ckpts,
           "predictions": len(preds)})
     check(returned is None, "the CLI trained in this process instead of starting its ranks")
@@ -3446,6 +3572,97 @@ PATH_KERNELS["tp_da2"] = ("preprocess_u8_train", "si_loss_sums", "si_loss_sums_b
                           "flash_attention_bf16", "flash_attention_backward_bf16")
 
 
+# The zoo's tensor parallelism (path tp_zoo): one loader DPT of each trunk
+# family at published widths and the loader's input size (its frames
+# through K3's train form at that size), in the (1, 2) world after the
+# worlds above and the data-parallel ranks, float32 at learning rate 0 as
+# PARALLEL_RUNS: losses within TOL_TRAIN_LOSS of the one-process steps, the
+# last step's gathered gradient within TOL_GRAD_GLOBAL, the state within
+# the loss's bound (no world-of-one witness: the float32 bound reads
+# none). Global batch 2: the
+# four models' float32 steps reserved 20-41 GB at batch 4 as one process.
+# BEiT-B writes a sharded checkpoint. Before that world, the training CLI
+# at framework.mesh.model=2 on Swin2-T, whose first stage (3 heads) stays
+# whole on each rank.
+TP_ZOO = ("dpt_beit_base_384", "dpt_swin_large_384", "dpt_swin2_tiny_256",
+          "dpt_next_vit_large_384")
+TP_ZOO_STEPS, TP_ZOO_BATCH = 3, 2
+TP_ZOO_CLI = "dpt_swin2_tiny_256"
+TP_ZOO_SHARDED = "dpt_beit_base_384"
+# the replicated layers whose gradient is whole only through a column
+# layer's input collective (tests/test_torch_tensor_parallel_zoo.py)
+TP_ZOO_INNER = ("norm1", "cpb_mlp.0", "proj1_bn")
+# The gathered gradient of the per-head parameters (``_tp_head_keys``: bias
+# tables, q and v biases, logit scales) against one process's, rel-L2 over
+# those leaves alone: the trunk's float32 gradients read 1.2e-5-1.3e-5 and
+# the attention inputs 1.5e-5-1.7e-5 on an H100 (PERF.md), so a share on the
+# wrong heads or the wrong dim, which moves them by O(1), stands far above.
+TOL_TP_HEADS = 1e-3
+PARALLEL_STEP_LAUNCHES.update({
+    (name, "float32"): {"preprocess_u8_train": 1, "si_loss_sums": 1, "si_loss_sums_backward": 1}
+    for name in TP_ZOO})
+PATH_KERNELS["tp_zoo"] = ("preprocess_u8_train", "si_loss_sums", "si_loss_sums_backward")
+
+
+def _tp_head_keys(model) -> list:
+    """The state_dict keys of the per-head parameters a module names in
+    ``tp_heads`` (bias tables, q and v biases, logit scales)."""
+    return [f"{prefix}.{name}" for prefix, m in model.named_modules()
+            for name in getattr(m, "tp_heads", {})]
+
+
+def _tp_zoo_models(tmp: str) -> dict:
+    """Each TP_ZOO model from ``load_model`` on the CPU with SEED's
+    generator (BEiT's LayerScale gammas drawn in [0.2, 0.8], the final depth
+    bias raised by 2, as the train phases), its per-head parameters drawn
+    head by head from the same generator (``init_weights_`` leaves BEiT's
+    tables and the q and v biases zero and every V2 logit scale log 10):
+    tables and biases N(0, 0.5^2) and N(0, 0.2^2), logit scales log U(5, 30),
+    below the clamp at log 100; pickled into ``tmp`` for the ranks;
+    {name: (model, its file, config, --set list)}."""
+    from mde_tpu_torch.models.model_loader import load_model
+    from mde_tpu_torch.nn.beit import BeitBlock
+
+    out = {}
+    for name in TP_ZOO:
+        g = torch.Generator().manual_seed(SEED)
+        model = load_model(name, device="cpu", generator=g)[0]
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BeitBlock):
+                    for gamma in (m.gamma_1, m.gamma_2):
+                        gamma.copy_(torch.rand(gamma.shape, generator=g) * 0.6 + 0.2)
+            params = dict(model.named_parameters())
+            for key in _tp_head_keys(model):
+                t, leaf = params[key], key.rsplit(".", 1)[-1]
+                if leaf == "logit_scale":
+                    t.copy_((torch.rand(t.shape, generator=g) * 25 + 5).log())
+                else:
+                    std = 0.5 if leaf == "relative_position_bias_table" else 0.2
+                    t.copy_(torch.randn(t.shape, generator=g) * std)
+            final_depth_conv(model).bias.add_(2.0)
+        path = os.path.join(tmp, f"tp_zoo_{name}.pt")
+        torch.save(model, path)
+        extra = ("framework.compute_dtype=float32", "framework.learning_rate=0")
+        out[name] = (model, path, model_cfg(name, *extra), list(model_sets(name) + extra))
+    return out
+
+
+def _tp_zoo_refs(zoo: dict, batches) -> dict:
+    """The one-process steps the zoo's ranks are held to, on the card, one
+    model at a time (its cached blocks back to the card after each)."""
+    refs = {}
+    for name, (model, _, cfg, _) in zoo.items():
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, grads, state = _one_process_steps(model, cfg, batches)
+        refs[name] = {"losses": losses, "ms": ms, "grads": grads,
+                      "state": {k: v.cpu() for k, v in state.items()},
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        del state
+        torch.cuda.empty_cache()
+    return refs
+
+
 def _tp_worlds() -> tuple[tuple, str, str]:
     """((data, model) worlds, --device, backend): one card a rank over NCCL
     with two cards ((1, 2)) or four ((1, 2) and (2, 2)); on one card, ranks
@@ -3456,97 +3673,185 @@ def _tp_worlds() -> tuple[tuple, str, str]:
     return ((1, 2), (2, 2)), "cuda:0", "gloo"
 
 
-def start_tensor_parallel(tmp: str, step_jobs: dict, data: str) -> Background:
+def start_tensor_parallel(tmp: str, step_jobs: dict, data: str, zoo: dict,
+                          zoo_waits: tuple, zoo_batches: str) -> Background:
     """Start the tensor_parallel phase's ranks in a thread: the (1, 2) world
     of ``_tp_worlds`` on its TP_WORLD_JOBS (the parallel phase's step jobs
     at ``model_axis`` 2), then the (2, 2) world beside the training CLI at
     ``framework.mesh.model=2``, started as a user starts it (its own
-    process, which starts its ranks). Its result: the worlds, device,
-    backend, each job's ranks (``got``), seconds and the CLI's exit."""
+    process, which starts its ranks); then the CLI on TP_ZOO_CLI; then,
+    once each event of ``zoo_waits`` is set (the models built and their
+    one-process steps taken; the data-parallel ranks and CLI done), the
+    zoo's (1, 2) world on the TP_ZOO models of ``zoo``
+    (``_tp_zoo_models``) and the file ``zoo_batches``. Its result: the
+    worlds, device, backend, each job's ranks (``got``), seconds, the
+    script's seconds at each start and the CLIs' exits."""
     from mde_tpu_torch.parallel import launch
 
     worlds, device, backend = _tp_worlds()
-    got, seconds = {}, {}
+    got, seconds, started = {}, {}, {}
 
-    def world(d: int, t: int) -> None:
-        jobs = [{**step_jobs[label], "name": f"tp{d}{t}_{label}", "model_axis": t}
-                for label in TP_WORLD_JOBS[(d, t)]]
-        if (d, t) == (1, 2):
-            jobs[0]["save_sharded"] = os.path.join(tmp, "tp_sharded")
+    def world(d: int, t: int, jobs=None, tag: str = "") -> None:
+        if jobs is None:
+            jobs = [{**step_jobs[label], "name": f"tp{d}{t}_{label}", "model_axis": t}
+                    for label in TP_WORLD_JOBS[(d, t)]]
+            if (d, t) == (1, 2):
+                jobs[0]["save_sharded"] = os.path.join(tmp, "tp_sharded")
         t0 = time.perf_counter()
+        started[f"{tag}{d}x{t}"] = t0 - T0
         got.update(launch.run(
             {"world": d * t, "device": device, "out": tmp, "threads": 2, "jobs": jobs},
-            os.path.join(tmp, f"spec_tp{d}{t}.json"), timeout=900, backend=backend))
-        seconds[f"{d}x{t}"] = time.perf_counter() - t0
+            os.path.join(tmp, f"spec_tp{tag}{d}{t}.json"), timeout=900, backend=backend))
+        seconds[f"{tag}{d}x{t}"] = time.perf_counter() - t0
+
+    def cli(name: str) -> dict:
+        out = os.path.join(tmp, f"tp_cli_{name}")
+        argv = [sys.executable, "-m", "mde_tpu_torch.tools.main", "--device", device,
+                "--data-dir", data,
+                *(a for x in ("training.n_epoch=1", "framework.mesh.model=2",
+                              "framework.mesh.data=1", f"paths.results_dir={out}/results",
+                              f"paths.predictions_dir={out}/preds",
+                              "experiment.wandb_disable=true", *model_sets(name))
+                  for a in ("--set", x))]
+        t0 = time.perf_counter()
+        started[f"cli_{name}"] = t0 - T0
+        proc = subprocess.run(argv, env={**os.environ, "MDE_DIST_BACKEND": backend},
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=900)
+        seconds[f"cli_{name}"] = time.perf_counter() - t0
+        return {"rc": proc.returncode, "dir": out, "stderr": proc.stderr[-3000:]}
 
     def work() -> dict:
         world(*worlds[0])
         rest = [Background(lambda w=w: world(*w)) for w in worlds[1:]]
         try:
-            cli = os.path.join(tmp, "tp_cli")
-            argv = [sys.executable, "-m", "mde_tpu_torch.tools.main", "--device", device,
-                    "--data-dir", data,
-                    *(a for x in ("training.n_epoch=1", "framework.mesh.model=2",
-                                  "framework.mesh.data=1", f"paths.results_dir={cli}/results",
-                                  f"paths.predictions_dir={cli}/preds",
-                                  "experiment.wandb_disable=true", *PARALLEL_SETS["flagship"])
-                      for a in ("--set", x))]
-            t0 = time.perf_counter()
-            proc = subprocess.run(argv, env={**os.environ, "MDE_DIST_BACKEND": backend},
-                                  cwd=os.path.dirname(os.path.abspath(__file__)),
-                                  capture_output=True, text=True, timeout=900)
-            seconds["cli"] = time.perf_counter() - t0
+            clis = {"flagship": cli("flagship")}
         finally:
             for task in rest:
                 task.wait()
         for task in rest:
             task.result()
+        # the CLI on Swin2-T while the data-parallel ranks end; then the zoo's
+        # world, whose ranks' float32 steps take 18-20 GB each, alone
+        clis[TP_ZOO_CLI] = cli(TP_ZOO_CLI)
+        for event in zoo_waits:
+            event.wait()
+        check(len(zoo) == len(TP_ZOO), "the zoo's models were not built")
+        jobs = [{"name": f"tpzoo_{name}", "mode": "steps", "model": path, "sets": sets,
+                 "batches": zoo_batches, "grads": True, "model_axis": 2,
+                 "generators": [[SEED, 0, i] for i in range(TP_ZOO_STEPS)]}
+                for name, (_, path, _, sets) in zoo.items()]
+        jobs[list(zoo).index(TP_ZOO_SHARDED)]["save_sharded"] = os.path.join(tmp, "tp_zoo_sharded")
+        world(1, 2, jobs, tag="zoo_")
         return {"worlds": worlds, "device": device, "backend": backend, "got": got,
-                "seconds": seconds, "cli": {"rc": proc.returncode, "dir": cli,
-                                            "stderr": proc.stderr[-3000:]}}
+                "seconds": seconds, "started_at_s": started, "cli": clis}
 
     return Background(work)
 
 
-def finish_tensor_parallel(task: Background, runs: dict, refs: dict, world1: dict, batches,
-                           tmp: str) -> dict:
-    """Wait for the thread of ``start_tensor_parallel`` and check what its
-    ranks saw: (a) the runs against the one-process steps and the
-    witnesses, (b) launches a rank a step, (c) each rank's parameter bytes
-    at the layout's share, (d) the sharded checkpoint restored in one
-    process, and the CLI's checkpoint loaded into one process, whose
-    predictions equal the ranks'; (e) each rank's step ms beside one
-    process's, on the runs' lines. Returns the launches by path."""
+def _tp_shares(head: dict, tag: str, ranks, d: int, t: int) -> None:
+    """Check and print a tensor-parallel run's ranks: their (data, model)
+    places and backend, each rank's parameter bytes against the layout's
+    share (and its peak MiB where the job read it)."""
+    at = [(r["data_index"], r["model_index"]) for r in ranks]
+    check(at == [(p // t, p % t) for p in range(d * t)],
+          f"tensor_parallel {tag}: ranks at {at}")
+    check(all(r["backend"] == head["backend"] for r in ranks),
+          f"tensor_parallel {tag}: ranks ran over {[r['backend'] for r in ranks]}")
+    shares = {"param_bytes": [r["param_bytes"] for r in ranks],
+              "param_bytes_predicted": ranks[0]["param_bytes_predicted"],
+              "param_bytes_whole": ranks[0]["param_bytes_whole"],
+              "sharded_keys": len(ranks[0]["sharded_keys"]),
+              "peak_mib_by_rank": [r.get("peak_mib") for r in ranks]}
+    emit({**head, "run": tag, "share": shares})
+    check(all(r["param_bytes"] == r["param_bytes_predicted"] for r in ranks),
+          f"tensor_parallel {tag}: parameter bytes {shares}")
+    check(shares["sharded_keys"] > 0, f"tensor_parallel {tag}: nothing sharded")
+
+
+def _check_sharded_restore(head: dict, model, path: str, saved: dict, device, tag: str) -> None:
+    """A (1, 2) world's sharded checkpoint restored into ``model`` in one
+    process: the ranks' state (``saved``, float32 copies) exactly."""
+    from mde_tpu_torch.train.checkpoint import load_checkpoint_sharded
+
+    model = copy.deepcopy(model).to(device)
+    load_checkpoint_sharded(path, model)
+    restored = model.state_dict()
+    same = all(torch.equal(restored[k].cpu().float() if v.is_floating_point()
+                           else restored[k].cpu(), v) for k, v in saved.items())
+    emit({**head, "run": f"sharded_checkpoint_{tag}", "restored_at": [1, 1],
+          "tensors": len(saved), "identical": same})
+    check(same, f"tensor_parallel: the {tag} sharded checkpoint restored other values in one "
+          "process")
+    del model, restored
+    torch.cuda.empty_cache()
+
+
+def _check_tp_cli(head: dict, name: str, cli: dict, tmp: str, device) -> None:
+    """The training CLI at T = 2 on ``name``: exit 0, one checkpoint in the
+    full grammar, loaded into one process with every key, whose predictions
+    of the test images are the ranks' within TOL_TOOL_PRED."""
     from mde_tpu_torch.tools.common import bootstrap_model, build_loaders, resolve_paths
-    from mde_tpu_torch.train.checkpoint import load_checkpoint_sharded, load_training_checkpoint
+    from mde_tpu_torch.train.checkpoint import load_training_checkpoint
     from mde_tpu_torch.train.trainer import generate_test_predictions
 
+    tag = f"tensor_parallel CLI {name}"
+    check(cli["rc"] == 0, f"{tag} exited {cli['rc']}: {cli['stderr']}")
+    cfg = model_cfg(name, f"paths.data_dir={os.path.join(tmp, 'data')}",
+                    f"paths.results_dir={cli['dir']}/one/results",
+                    f"paths.predictions_dir={cli['dir']}/one/preds")
+    ckpts = sorted(f for f in os.listdir(f"{cli['dir']}/results") if f.endswith(".pth"))
+    check(len(ckpts) == 1, f"{tag} wrote {ckpts}")
+    path = os.path.join(cli["dir"], "results", ckpts[0])
+    payload = load_training_checkpoint(path)
+    model, report = bootstrap_model(cfg, device, path)
+    grammar = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    full = {k: tuple(v.shape) for k, v in payload["model_state_dict"].items()} == grammar
+    loader = build_loaders(cfg, resolve_paths(cfg), train=False, device=device)["test"]
+    written = generate_test_predictions(model, cfg, loader, f"{cli['dir']}/one/preds")
+    names = sorted(os.listdir(f"{cli['dir']}/preds"))
+    gaps = [float(np.abs(np.load(f"{cli['dir']}/preds/{n}")
+                         - np.load(f"{cli['dir']}/one/preds/{n}")).max()) for n in names]
+    emit({**head, "run": "cli", "model": name, "seconds": head["seconds"].get(f"cli_{name}"),
+          "checkpoint": ckpts, "full_grammar": full, "loaded": report["loaded"],
+          "shape_mismatch": report["shape_mismatch"], "predictions": len(names),
+          "one_process_written": written, "max_abs_vs_one_process": max(gaps or [None]),
+          "tolerance": TOL_TOOL_PRED})
+    check(full and not report["shape_mismatch"] and report["loaded"] == len(grammar),
+          f"{tag}: its checkpoint is not the full grammar")
+    check(len(names) == 5 and written == 5, f"{tag}: {len(names)} predictions")
+    check(max(gaps) <= TOL_TOOL_PRED, f"{tag}: one process's predictions {max(gaps)} from the "
+          "ranks'")
+    del model
+    torch.cuda.empty_cache()
+
+
+def finish_tensor_parallel(task: Background, runs: dict, refs: dict, world1: dict, batches,
+                           tmp: str, zoo: dict, zoo_refs: dict) -> dict:
+    """Wait for the thread of ``start_tensor_parallel`` and check what its
+    ranks saw: (a) the runs against the one-process steps and the
+    witnesses, the zoo's against its one-process steps (``zoo_refs``), (b)
+    launches a rank a step, (c) each rank's parameter bytes at the layout's
+    share, (d) the sharded checkpoints (flagship, BEiT-B) restored in one
+    process, and the CLIs' checkpoints loaded into one process, whose
+    predictions equal the ranks'; (e) each rank's step ms beside one
+    process's, on the runs' lines. Returns the launches by path."""
     run = task.result()
     head = {"phase": "tensor_parallel", "worlds": [list(w) for w in run["worlds"]],
             "device": run["device"], "backend": run["backend"],
             "cards": torch.cuda.device_count(), "seconds": run["seconds"],
+            "started_at_s": run["started_at_s"],
             "note": ("the ranks share one card over gloo: a correctness run; their step times "
                      "are readings, not a scaling figure" if run["backend"] == "gloo"
                      else "one card a rank over NCCL")}
     emit(head)
-    launches = {path: dict.fromkeys(_counters(), 0) for path in ("tp_flagship", "tp_da2")}
+    launches = {path: dict.fromkeys(_counters(), 0)
+                for path in ("tp_flagship", "tp_da2", "tp_zoo")}
     for d, t in run["worlds"]:
         for label in TP_WORLD_JOBS[(d, t)]:
             ranks = run["got"][f"tp{d}{t}_{label}"]
             tag = f"{d}x{t}_{label}"
-            at = [(r["data_index"], r["model_index"]) for r in ranks]
-            check(at == [(p // t, p % t) for p in range(d * t)],
-                  f"tensor_parallel {tag}: ranks at {at}")
-            check(all(r["backend"] == run["backend"] for r in ranks),
-                  f"tensor_parallel {tag}: ranks ran over {[r['backend'] for r in ranks]}")
-            shares = {"param_bytes": [r["param_bytes"] for r in ranks],
-                      "param_bytes_predicted": ranks[0]["param_bytes_predicted"],
-                      "param_bytes_whole": ranks[0]["param_bytes_whole"],
-                      "sharded_keys": len(ranks[0]["sharded_keys"])}
-            emit({**head, "run": tag, "share": shares})
-            check(all(r["param_bytes"] == r["param_bytes_predicted"] for r in ranks),
-                  f"tensor_parallel {tag}: parameter bytes {shares}")
-            check(shares["sharded_keys"] > 0, f"tensor_parallel {tag}: nothing sharded")
+            _tp_shares(head, tag, ranks, d, t)
             if label == "flagship_float64":
                 _check_parallel_float64(runs["flagship_float32"][3], refs[label], ranks,
                                         phase="tensor_parallel", run_name=tag)
@@ -3561,47 +3866,48 @@ def finish_tensor_parallel(task: Background, runs: dict, refs: dict, world1: dic
                     for k, v in step.items():
                         path[k] += v
 
-    device = torch.device(run["device"])  # the card the ranks ran on (the first of several)
-    # (d) the (1, 2) world's sharded checkpoint restored in one process
-    model = copy.deepcopy(runs["flagship_float32"][3]).to(device)
-    load_checkpoint_sharded(os.path.join(tmp, "tp_sharded"), model)
-    saved = run["got"]["tp12_flagship_float32"][0]["state_dict"]
-    restored = model.state_dict()
-    same = all(torch.equal(restored[k].cpu().float() if v.is_floating_point()
-                           else restored[k].cpu(), v) for k, v in saved.items())
-    emit({**head, "run": "sharded_checkpoint", "restored_at": [1, 1], "tensors": len(saved),
-          "identical": same})
-    check(same, "tensor_parallel: the sharded checkpoint restored other values in one process")
+    # (a)-(c) the zoo's (1, 2) world against its one-process steps
+    for name, (model, _, _, _) in zoo.items():
+        ranks = run["got"][f"tpzoo_{name}"]
+        tag = f"1x2_{name}"
+        _tp_shares(head, tag, ranks, 1, 2)
+        ref = zoo_refs[name]
+        result = _check_parallel_run(name, name, "float32", ref, ranks, None,
+                                     phase="tensor_parallel", run_name=tag, part=_trunk_part)
+        grads, got = ref["grads"], ranks[0]["grads"]
+        inner = sorted(k for k in grads if k.rsplit(".", 2)[-2] in TP_ZOO_INNER)
+        inner_rel = _grad_rel({k: got[k] for k in inner}, {k: grads[k] for k in inner})
+        emit({**head, "run": tag, "attention_inputs": len(inner),
+              "attention_inputs_grad_rel_l2": inner_rel,
+              "one_process_peak_mib": ref["peak_mib"],
+              "params_whole": sum(p.numel() for p in model.parameters()),
+              "grad_rel_l2": result["grad_rel_l2"]})
+        check(len(inner) >= 8 and inner_rel <= TOL_GRAD_GLOBAL,
+              f"{tag}: the attention inputs' gradient rel-L2 {inner_rel} ({len(inner)} tensors)")
+        heads = _tp_head_keys(model)
+        if heads:  # Next-ViT's attention has no per-head parameter
+            heads_rel = _grad_rel({k: got[k] for k in heads}, {k: grads[k] for k in heads})
+            emit({**head, "run": tag, "per_head_params": len(heads),
+                  "per_head_grad_rel_l2": heads_rel})
+            check(heads_rel <= TOL_TP_HEADS,
+                  f"{tag}: the per-head parameters' gradient rel-L2 {heads_rel} "
+                  f"({len(heads)} tensors)")
+        for r in ranks:
+            for step in r["launches"]:
+                for k, v in step.items():
+                    launches["tp_zoo"][k] += v
 
-    # (d) the training CLI at T = 2: its checkpoint, in one process
-    cli = run["cli"]
-    check(cli["rc"] == 0, f"tensor_parallel CLI exited {cli['rc']}: {cli['stderr']}")
-    cfg = model_cfg("flagship", *PARALLEL_SETS["flagship"],
-                    f"paths.data_dir={os.path.join(tmp, 'data')}",
-                    f"paths.results_dir={cli['dir']}/one/results",
-                    f"paths.predictions_dir={cli['dir']}/one/preds")
-    ckpts = sorted(f for f in os.listdir(f"{cli['dir']}/results") if f.endswith(".pth"))
-    check(len(ckpts) == 1, f"tensor_parallel CLI wrote {ckpts}")
-    path = os.path.join(cli["dir"], "results", ckpts[0])
-    payload = load_training_checkpoint(path)
-    model, report = bootstrap_model(cfg, device, path)
-    grammar = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    full = {k: tuple(v.shape) for k, v in payload["model_state_dict"].items()} == grammar
-    loader = build_loaders(cfg, resolve_paths(cfg), train=False, device=device)["test"]
-    written = generate_test_predictions(model, cfg, loader, f"{cli['dir']}/one/preds")
-    names = sorted(os.listdir(f"{cli['dir']}/preds"))
-    gaps = [float(np.abs(np.load(f"{cli['dir']}/preds/{n}")
-                         - np.load(f"{cli['dir']}/one/preds/{n}")).max()) for n in names]
-    emit({**head, "run": "cli", "seconds": run["seconds"].get("cli"), "checkpoint": ckpts,
-          "full_grammar": full, "loaded": report["loaded"],
-          "shape_mismatch": report["shape_mismatch"], "predictions": len(names),
-          "one_process_written": written, "max_abs_vs_one_process": max(gaps or [None]),
-          "tolerance": TOL_TOOL_PRED})
-    check(full and not report["shape_mismatch"] and report["loaded"] == len(grammar),
-          "tensor_parallel CLI: its checkpoint is not the full grammar")
-    check(len(names) == 5 and written == 5, f"tensor_parallel CLI: {len(names)} predictions")
-    check(max(gaps) <= TOL_TOOL_PRED,
-          f"tensor_parallel CLI: one process's predictions {max(gaps)} from the ranks'")
+    device = torch.device(run["device"])  # the card the ranks ran on (the first of several)
+    # (d) the (1, 2) worlds' sharded checkpoints restored in one process
+    _check_sharded_restore(head, runs["flagship_float32"][3], os.path.join(tmp, "tp_sharded"),
+                           run["got"]["tp12_flagship_float32"][0]["state_dict"], device,
+                           "flagship")
+    _check_sharded_restore(head, zoo[TP_ZOO_SHARDED][0], os.path.join(tmp, "tp_zoo_sharded"),
+                           run["got"][f"tpzoo_{TP_ZOO_SHARDED}"][0]["state_dict"], device,
+                           TP_ZOO_SHARDED)
+    # (d) the training CLIs at T = 2: their checkpoints, in one process
+    for name, cli in run["cli"].items():
+        _check_tp_cli(head, name, cli, tmp, device)
     for path_name, counts in launches.items():
         check_path_launches(path_name, counts, f"by the {path_name} ranks")
     return launches
@@ -3643,11 +3949,29 @@ def _grad_rel(got: dict, want: dict) -> float:
                    torch.cat([want[k].double().flatten() for k in keys]))
 
 
-def _subtree_rel(got: dict, want: dict) -> dict:
-    """Gradient rel-L2 by top-level module."""
+def _top_module(key: str) -> str:
+    return key.split(".", 1)[0]
+
+
+def _trunk_part(key: str) -> str:
+    """A DPT's parameter by trunk part: a block or stage of
+    ``pretrained.model`` (``blocks.i``, ``layers.i``, Next-ViT's ``stageS``
+    or ``stemI``), else its first two names (``pretrained.act_postprocess1``,
+    ``scratch.refinenet4``)."""
+    parts = key.split(".")
+    if parts[:2] != ["pretrained", "model"] or len(parts) < 4:
+        return ".".join(parts[:2])
+    if parts[2] in ("blocks", "layers"):
+        return ".".join(parts[:4])
+    return "pretrained.model." + (parts[2].split("_")[0] if parts[2].startswith("stage")
+                                  else parts[2])
+
+
+def _subtree_rel(got: dict, want: dict, part=_top_module) -> dict:
+    """Gradient rel-L2 by module: the keys grouped by ``part(key)``."""
     out = {}
-    for top in sorted({k.split(".", 1)[0] for k in want}):
-        keys = sorted(k for k in want if k.split(".", 1)[0] == top)
+    for top in sorted({part(k) for k in want}):
+        keys = sorted(k for k in want if part(k) == top)
         out[top] = _grad_rel({k: got[k] for k in keys}, {k: want[k] for k in keys})
     return out
 
@@ -3662,13 +3986,16 @@ def _gap_leaves(got: dict, want: dict, n: int = 3) -> list:
 
 
 def _check_parallel_run(label, name, dtype, ref: dict, ranks, world1,
-                        phase: str = "parallel", run_name: str = None) -> dict:
+                        phase: str = "parallel", run_name: str = None,
+                        part=_top_module) -> dict:
     """The one-process steps of ``label`` on the card (``ref``, from
     ``_one_process_refs``) against its ranks' run; returns the numbers the
     phase line prints. ``world1`` is the run's world of one over NCCL: its
     gradient against one process's is the noise witness a bf16 run's
-    gradient is held to (PARALLEL_RUNS' comment). The ranks' gradients and
-    state are the full grammar (gathered over the model group at T > 1)."""
+    gradient is held to (PARALLEL_RUNS' comment); None for a float32 run
+    without one. The ranks' gradients and state are the full grammar
+    (gathered over the model group at T > 1); the gradient's split is by
+    ``part`` of each name."""
     losses, ms, grads, state = ref["losses"], ref["ms"], ref["grads"], ref["state"]
     state = {k: v.detach().cpu().float() for k, v in state.items()
              if k in ranks[0]["state_dict"] and v.is_floating_point()}
@@ -3685,12 +4012,13 @@ def _check_parallel_run(label, name, dtype, ref: dict, ranks, world1,
               "grad_rel_l2": grad_rel, "state_rel_l2": state_rel,
               "step_ms_by_rank": [r["step_ms"] for r in ranks], "step_ms_one_process": ms,
               "launches_per_rank_step": per_step[0]}
-    witness = _grad_rel(world1["grads"], grads)
-    result.update(witness_bn_form_world1=witness,
-                  grad_rel_l2_ranks_vs_world1=_grad_rel(r0["grads"], world1["grads"]),
-                  grad_rel_l2_by_subtree={"ranks": _subtree_rel(r0["grads"], grads),
-                                          "witness": _subtree_rel(world1["grads"], grads)},
-                  gap_leaves=_gap_leaves(r0["grads"], grads))
+    by_subtree = {"ranks": _subtree_rel(r0["grads"], grads, part)}
+    if world1 is not None:
+        witness = _grad_rel(world1["grads"], grads)
+        by_subtree["witness"] = _subtree_rel(world1["grads"], grads, part)
+        result.update(witness_bn_form_world1=witness,
+                      grad_rel_l2_ranks_vs_world1=_grad_rel(r0["grads"], world1["grads"]))
+    result.update(grad_rel_l2_by_subtree=by_subtree, gap_leaves=_gap_leaves(r0["grads"], grads))
     if dtype == "float32":
         tol_grad = TOL_GRAD_GLOBAL
     else:
@@ -3820,7 +4148,7 @@ def _check_parallel_bn(data: dict, ranks) -> dict:
 # served in this process first (``_serve_one_process``), the reading the
 # worlds' round trips stand beside.
 SERVE_WORLDS = (("flagship", (2, 1)), ("flagship", (1, 2)), ("flagship", (2, 2)),
-                ("da2", (1, 2)))
+                ("da2", (1, 2)), ("dpt_swin2_tiny_256", (1, 2)))
 SERVE_WORLD_MAX_BATCH = 8
 SERVE_WORLD_GROUPS = (1, 2, 4, 8)  # posts at once, each group filling its bucket
 SERVE_WORLD_REPS = 2
@@ -3832,9 +4160,12 @@ SERVE_WORLD_ATTEMPTS = 3
 # launches a rank's device step: K3's eval form, K1 (flagship) and K4 on
 # the rank's heads; a rank with no rows of a bucket launches none
 SERVE_WORLD_STEP = {"flagship": {"preprocess_u8": 1, "window_attention": 1, "flash_attention": 12},
-                    "da2": {"preprocess_u8": 1, "flash_attention": 12}}
+                    "da2": {"preprocess_u8": 1, "flash_attention": 12},
+                    "dpt_swin2_tiny_256": {"preprocess_u8": 1}}
 PATH_KERNELS["serve_world_flagship"] = PATH_KERNELS["flagship_serve"]
 PATH_KERNELS["serve_world_da2"] = PATH_KERNELS["da2_serve"]
+# Swin2-T's attention is plain PyTorch (``biased_attention``); K3 is its kernel
+PATH_KERNELS["serve_world_dpt_swin2_tiny_256"] = ("preprocess_u8",)
 # The offline tools at (2, 2) against one process: TP and the data split
 # reorder float32 sums; SI-RMSE's variance amplifies their relative
 # differences a few times, and a delta may count a pixel across its
@@ -3886,7 +4217,7 @@ def _serve_world_refs(tmp: str) -> dict:
         results = os.path.join(tmp, name)
         cfg = model_cfg(name, f"paths.results_dir={results}")
         ckpt = checkpoint_path(results, cfg.experiment.model_name)
-        save_checkpoint(ckpt, make_model(name, cfg, bias=0.5 if name == "da2" else 0.0))
+        save_checkpoint(ckpt, make_model(name, cfg, bias=0.0 if name == "flagship" else 0.5))
         model, _ = bootstrap_model(cfg, device, checkpoint=ckpt)
         step = make_predict_step(model, cfg)
         native = tuple(int(v) for v in cfg.framework.native_size)
@@ -3908,7 +4239,7 @@ def _start_world_server(name: str, d: int, t: int, results: str, log_path: str):
     argv = [sys.executable, "-m", "mde_tpu_torch.tools.serve", "--device", device, "--port", "0",
             "--max-batch", str(SERVE_WORLD_MAX_BATCH),
             "--window-ms", str(SERVE_WORLD_WINDOW_MS),
-            *(a for x in (DA2_SETS if name == "da2" else ()) + (f"paths.results_dir={results}",)
+            *(a for x in model_sets(name) + (f"paths.results_dir={results}",)
               + _world_sets(d, t) for a in ("--set", x))]
     log = open(log_path, "w")
     # a session of its own: a failed check kills the launcher and its ranks together
@@ -4265,8 +4596,8 @@ def finish_serve_world(run: dict) -> dict:
             "tolerance": {"abs": TOL_SERVED, "of_spread": TOL_SERVED_SPREAD},
             "note": ("a world's ranks share card 0 over gloo where the host has fewer cards "
                      "than ranks, else one card a rank over NCCL (backend); the full script "
-                     "runs the worlds beside the export_zoo phase: round trips are readings "
-                     "under load, not a scaling figure")}
+                     "runs the worlds beside the flagship's and DA-V2-S's phases: round trips "
+                     "are readings under load, not a scaling figure")}
     by_path = {f"serve_world_{name}": dict.fromkeys(_counters(), 0) for name in dict(SERVE_WORLDS)}
     for w in out["worlds"]:
         emit({**head, **{k: v for k, v in w.items() if k != "launches"}})
@@ -4345,54 +4676,50 @@ def main() -> int:
         phase_s[phase] = phase_s.get(phase, 0.0) + now - mark[0]
         mark[0] = now
 
-    kernels = phase_kernels()
+    kernels = phase_kernels()  # alone: its times are the kernels line's
     phase_op_dispatch()
     lap("kernels")
     by_path = {}
-    for name in ("flagship", "da2"):
-        by_path[f"{name}_serve"] = phase_serve(name)
-        by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
-        lap(f"{name}_serve_train_tools_export")
-    by_path["flagship_augment"] = phase_augment()
-    lap("augment")
-    # the offline tools as one process and at (2, 2) beside the zoo phases,
-    # which check no time: small ranks, a few frames each
-    tools_world = start_tools_world()
-    try:
+    # What runs beside this process's phases is its own processes, and no
+    # check reads a time: the kernels' counts are each process's own. Beside
+    # the flagship's and DA-V2-S's phases and the augment phase, the
+    # processes that hold little of the card: the serving worlds (their
+    # references first, in this process), the zoo's export (phase 10, its
+    # own process) and the examples. Beside the zoo phases, whose loader
+    # models' float32 steps reserve 20-41 GB, the offline tools' small
+    # ranks. The parallel phase runs alone: its worlds and the zoo's model
+    # ranks fill the card (beside it the serving worlds' ranks and the
+    # examples ran it out of memory, cuBLAS failing to allocate its handle).
+    with contextlib.ExitStack() as beside:  # stopped on every way out
+        serve_world = start_serve_world()
+        beside.callback(stop_world_run, serve_world)
+        lap("serve_world_references")
+        export_zoo = start_export_zoo()
+        beside.callback(stop_export_zoo, export_zoo)
+        examples = start_examples()
+        beside.callback(stop_examples, examples)
+        for name in ("flagship", "da2"):
+            by_path[f"{name}_serve"] = phase_serve(name)
+            by_path.update(phase_train(name))  # the train path, then the tools on its checkpoint
+            lap(f"{name}_serve_train_tools_export")
+        by_path["flagship_augment"] = phase_augment()
+        lap("augment")
+        by_path.update(finish_examples(examples))
+        by_path.update(finish_serve_world(serve_world))
+        by_path.update(finish_export_zoo(export_zoo))
+        lap("examples_serve_world_export_zoo_after_augment")
+        tools_world = start_tools_world()
+        beside.callback(stop_world_run, tools_world)
         for name, sets in ZOO:
             by_path.update(phase_zoo(name, sets))
         lap("zoo")
         for name in ZOO_LOADER:
             by_path.update(phase_zoo_loader(name))
         lap("zoo_loader")
-    except BaseException:
-        stop_world_run(tools_world)
-        raise
-    finish_tools_world(tools_world)
-    lap("serve_world_tools_after_zoo_loader")
-    # the serving worlds (their references first, in this process) beside the
-    # zoo's export, which checks no time. Beside the parallel phase their
-    # ranks and its ranks and the examples' ran the card out of memory
-    # (cuBLAS could not allocate its handle, twice).
-    serve_world = start_serve_world()
-    lap("serve_world_references")
-    try:
-        by_path.update(phase_export_zoo())
-    except BaseException:
-        stop_world_run(serve_world)
-        raise
-    lap("export_zoo")
-    by_path.update(finish_serve_world(serve_world))
-    lap("serve_world_after_export_zoo")
-    examples = start_examples()  # beside the parallel phase, which times nothing it checks
-    try:
-        by_path.update(phase_parallel())  # the tensor_parallel phase's worlds beside it
-    except BaseException:
-        stop_examples(examples)
-        raise
+        finish_tools_world(tools_world)
+        lap("serve_world_tools_after_zoo_loader")
+    by_path.update(phase_parallel())  # the tensor_parallel phase's worlds beside it
     lap("parallel_and_tensor_parallel")
-    by_path.update(finish_examples(examples))
-    lap("examples")
     emit({"seconds_by_phase": phase_s})
     rows = []
     for name, source, replaces in (

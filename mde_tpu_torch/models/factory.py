@@ -8,6 +8,14 @@
   "DPT_Hybrid"             -             ->  DPTDepthModel(vitb_rn50_384)
   "U_Net"                  -             ->  SimpleUNet
   "DepthAnythingV2_{size}" -             ->  DepthAnythingV2 of that size
+  a DPT row of ``model_loader.DEFAULT_MODELS`` (``dpt_beit_base_384``,
+  ``dpt_swin2_tiny_256`` ...) ->  DPTDepthModel on that trunk, built for the
+                                 row's input size (the CLIs' config takes it
+                                 as ``framework.input_size``)
+
+The loader rows are the port's: mde_tpu's factory has none, and its tools
+reach those models only through ``model_loader``. Here the training CLI,
+the server and the offline tools build them from ``model.model_type``.
 
 ``model.network.use_lb`` / ``use_dgr`` (or the same keys on ``model``) reach
 both MiDaS-small models, as in mde_tpu; the flagship takes ``use_dgr`` and
@@ -48,6 +56,10 @@ def _model_class(model_cfg):
     if model_type.startswith("DepthAnythingV2"):
         return DepthAnythingV2, {"size": model_type.split("_")[-1] if "_" in model_type
                                  else "vits"}
+    from .model_loader import DEFAULT_MODELS, row_class
+
+    if isinstance(DEFAULT_MODELS.get(model_type, (None,))[0], dict):
+        return row_class(model_type)
     raise ValueError(f"Unknown model_type: {model_type!r}")
 
 

@@ -6,9 +6,9 @@ host preprocessing pipeline (data/midas_transforms.py). ``load_model`` builds
 the model with weights from a seed; restoring a checkpoint that exists is the
 caller's job (train/checkpoint.py), as in mde_tpu, and a path that does not
 exist prints a note. The openvino entry is an inference engine's and raises.
-This table is the only way to the BEiT, Swin, LeViT and Next-ViT DPTs: the
-model factory (models/factory.py) has no ``model_type`` for them, nor has
-mde_tpu's.
+``row_class`` resolves a row to its constructor, here and for the model
+factory (models/factory.py), whose ``model.model_type`` takes the DPT rows
+(mde_tpu's factory has none).
 """
 
 from __future__ import annotations
@@ -43,6 +43,17 @@ DEFAULT_MODELS = {
 }
 
 
+def row_class(model_type: str):
+    """(class, constructor kwargs) of a ``DEFAULT_MODELS`` row that has a
+    constructor: a DPT built for the row's input size, or a MiDaS CNN."""
+    spec, size, _ = DEFAULT_MODELS[model_type]
+    if spec == "midas":
+        return MidasNet, {}
+    if spec == "midas_small":
+        return MidasNetSmall, {}
+    return DPTDepthModel, {**spec, "input_size": size}
+
+
 def load_model(model_type: str = "dpt_beit_large_512", model_path: Optional[str] = None,
                device="cuda", generator: Optional[torch.Generator] = None):
     """(model, input (h, w), transform) for a ``DEFAULT_MODELS`` entry.
@@ -62,14 +73,8 @@ def load_model(model_type: str = "dpt_beit_large_512", model_path: Optional[str]
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"load_model({model_type!r}, device={str(device)!r}): no CUDA "
                            "device is visible")
-    if spec == "midas":
-        cls, kwargs = MidasNet, {}
-    elif spec == "midas_small":
-        cls, kwargs = MidasNetSmall, {}
-    else:
-        cls, kwargs = DPTDepthModel, {**spec, "input_size": size}
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
-    model = build_module(cls, kwargs, device, generator)
+    model = build_module(*row_class(model_type), device, generator)
 
     from ..data.midas_transforms import transforms
 

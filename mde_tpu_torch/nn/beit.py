@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.tensor import copy_to_model
 from .blocks import LayerNorm, biased_attention, device_constant
 from .vit import Mlp, PatchEmbed
 
@@ -57,9 +58,15 @@ def _relative_position_index(h: int, w: int) -> torch.Tensor:
 
 
 class BeitAttention(nn.Module):
+    # under tensor parallelism (parallel/tensor.py): qkv, q_bias and v_bias
+    # hold this rank's heads of q, k and v, the bias table their columns,
+    # and proj sums the ranks' heads
+    tp_linears = {"qkv": "column", "proj": "row"}
+    tp_heads = {"q_bias": "column", "v_bias": "column", "relative_position_bias_table": "heads"}
+
     def __init__(self, dim: int, num_heads: int, pretrain_grid: tuple):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
         self.pretrain_grid = tuple(pretrain_grid)
         ph, pw = self.pretrain_grid
         self.num_rel = (2 * ph - 1) * (2 * pw - 1)
@@ -77,7 +84,8 @@ class BeitAttention(nn.Module):
         self.relative_position_index.copy_(_relative_position_index(*self.pretrain_grid))
 
     def _bias(self, grid: tuple) -> torch.Tensor:
-        """(heads, 1+HW, 1+HW) float32 bias for the token grid ``grid``."""
+        """(heads, 1+HW, 1+HW) float32 bias for the token grid ``grid``: all
+        heads, or this model rank's (its share of the table)."""
         table = self.relative_position_bias_table.float()
         if grid == self.pretrain_grid:
             idx = self.relative_position_index
@@ -86,20 +94,23 @@ class BeitAttention(nn.Module):
             spatial = table[:self.num_rel].reshape(2 * ph - 1, 2 * pw - 1, -1).permute(2, 0, 1)
             spatial = F.interpolate(spatial[None], size=(2 * gh - 1, 2 * gw - 1), mode="bilinear",
                                     align_corners=True)[0]
-            table = torch.cat([spatial.permute(1, 2, 0).reshape(-1, self.num_heads),
+            table = torch.cat([spatial.permute(1, 2, 0).reshape(-1, table.shape[1]),
                                table[self.num_rel:]])
             idx = device_constant(_relative_position_index, gh, gw, device=table.device)
         n = idx.shape[0]
         return table[idx.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
 
     def forward(self, x, grid: tuple):
-        b, n, c = x.shape
-        hd = c // self.num_heads
+        b, n, _ = x.shape
+        hd = self.head_dim
+        heads = self.q_bias.shape[0] // hd  # all, or this model rank's share
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
+        if heads < self.num_heads:  # the column layer's input collective: the
+            x = copy_to_model(x)    # input's gradient sums the ranks' heads
         qkv = F.linear(x, self.qkv.weight, qkv_bias)
-        q, k, v = qkv.reshape(b, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv.reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
         out = biased_attention(q, k, v, self._bias(tuple(grid))[None], hd**-0.5)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return self.proj(out.transpose(1, 2).reshape(b, n, heads * hd))
 
 
 class BeitBlock(nn.Module):

@@ -94,10 +94,14 @@ class NCB(nn.Module):
 class EMHSA(nn.Module):
     """Efficient MHSA: K and V from the input average-pooled by ``sr_ratio``."""
 
+    # under tensor parallelism (parallel/tensor.py): q, k and v hold this
+    # rank's heads, and proj sums them
+    tp_linears = {"q": "column", "k": "column", "v": "column", "proj": "row"}
+
     def __init__(self, c: int, sr_ratio: int = 1):
         super().__init__()
         self.sr_ratio = sr_ratio
-        self.heads = max(c // _HEAD_DIM, 1)
+        self.num_heads = max(c // _HEAD_DIM, 1)
         self.q = nn.Linear(c, c)
         self.k = nn.Linear(c, c)
         self.v = nn.Linear(c, c)
@@ -105,14 +109,16 @@ class EMHSA(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        hd = c // self.heads
+        hd = c // self.num_heads
         kv_in = F.avg_pool2d(x, self.sr_ratio) if self.sr_ratio > 1 else x
 
-        q = self.q(x.flatten(2).transpose(1, 2)).reshape(b, h * w, self.heads, hd).transpose(1, 2)
+        q = self.q(x.flatten(2).transpose(1, 2))
+        heads = q.shape[-1] // hd  # all, or this model rank's share
+        q = q.reshape(b, h * w, heads, hd).transpose(1, 2)
         kv = kv_in.flatten(2).transpose(1, 2)
-        k = self.k(kv).reshape(b, -1, self.heads, hd).transpose(1, 2)
-        v = self.v(kv).reshape(b, -1, self.heads, hd).transpose(1, 2)
-        out = biased_attention(q, k, v, scale=hd**-0.5).transpose(1, 2).reshape(b, h * w, c)
+        k = self.k(kv).reshape(b, -1, heads, hd).transpose(1, 2)
+        v = self.v(kv).reshape(b, -1, heads, hd).transpose(1, 2)
+        out = biased_attention(q, k, v, scale=hd**-0.5).transpose(1, 2).reshape(b, h * w, -1)
         return self.proj(out).transpose(1, 2).reshape(b, c, h, w)
 
 

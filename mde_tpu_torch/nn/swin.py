@@ -42,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.tensor import copy_to_model
 from .blocks import LayerNorm, biased_attention, device_constant
 from .vit import Mlp
 
@@ -100,14 +101,25 @@ def _shift_mask(h: int, w: int, window: int, shift: int):
 
 
 class WindowAttention(nn.Module):
+    """Under tensor parallelism (parallel/tensor.py) qkv holds this rank's
+    heads of q, k and v, and with them V1's bias table its columns, V2's
+    q and v biases, logit scales and the last layer of its position-bias
+    MLP (column-parallel: its input's gradient, which reaches the
+    replicated first layer, sums the ranks' heads); proj sums the heads."""
+
     def __init__(self, dim: int, num_heads: int, window: int, version: int = 1):
         super().__init__()
         self.num_heads, self.window, self.version = num_heads, window, version
+        self.head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=version == 1)
         if version == 1:
+            self.tp_linears = {"qkv": "column", "proj": "row"}
+            self.tp_heads = {"relative_position_bias_table": "heads"}
             self.relative_position_bias_table = nn.Parameter(
                 torch.zeros((2 * window - 1) ** 2, num_heads))
         else:
+            self.tp_linears = {"qkv": "column", "proj": "row", "cpb_mlp.2": "column"}
+            self.tp_heads = {"q_bias": "column", "v_bias": "column", "logit_scale": "column"}
             self.q_bias = nn.Parameter(torch.zeros(dim))
             self.v_bias = nn.Parameter(torch.zeros(dim))
             self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), math.log(10.0)))
@@ -127,18 +139,22 @@ class WindowAttention(nn.Module):
 
     def forward(self, x, window: int, mask=None):
         """x: (B nW, T, C) windows of side ``window``; mask: (nW, T, T) or None."""
-        bnw, t, c = x.shape
-        nh, hd = self.num_heads, c // self.num_heads
+        bnw, t, _ = x.shape
+        hd = self.head_dim
         idx = device_constant(_v1_rel_index, window, device=x.device).reshape(-1)
         if self.version == 1:
             qkv = self.qkv(x)
             table, scale = self.relative_position_bias_table.float(), hd**-0.5
         else:
+            if self.q_bias.shape[0] < self.num_heads * hd:  # the column layer's input
+                x = copy_to_model(x)  # collective: the input's gradient sums the ranks' heads
             qkv = F.linear(x, self.qkv.weight,
                            torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias]))
             coords = device_constant(_v2_log_coords, window, device=x.device)
+            coords = coords.to(self.cpb_mlp[0].weight.dtype)  # a float64 model's own type
             table = 16.0 * torch.sigmoid(self.cpb_mlp(coords).float())
             scale = torch.clamp(self.logit_scale.float(), max=math.log(100.0)).exp()
+        nh = qkv.shape[-1] // (3 * hd)  # all, or this model rank's share
         q, k, v = qkv.reshape(bnw, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
         if self.version == 2:
             q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
@@ -151,7 +167,7 @@ class WindowAttention(nn.Module):
             shape = (bnw // nw, nw, nh, t, -1)
             out = biased_attention(q.reshape(shape), k.reshape(shape), v.reshape(shape),
                                    bias + mask[:, None], scale).reshape(bnw, nh, t, -1)
-        return self.proj(out.transpose(1, 2).reshape(bnw, t, c))
+        return self.proj(out.transpose(1, 2).reshape(bnw, t, nh * hd))
 
 
 class SwinBlock(nn.Module):

@@ -164,12 +164,9 @@ def run(spec: dict, spec_path: str, timeout: Optional[float] = None,
 
 def _config(job: dict):
     from ..core import config as config_lib
-    from ..tools.common import _override
+    from ..tools.common import apply_sets
 
-    cfg = config_lib.defaults()
-    for item in job.get("sets", []):
-        _override(cfg, item)
-    return cfg
+    return apply_sets(config_lib.defaults(), job.get("sets", []))
 
 
 def _batchnorm_job(job: dict, device, rank: int, world: int) -> dict:
@@ -267,6 +264,8 @@ def _steps_job(job: dict, device, rank: int, world: int) -> dict:
     from .tensor import full_optimizer_state, full_state_dict, parameter_bytes
 
     cfg = _config(job)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     model = torch.load(job["model"], weights_only=False)
     pipeline = given_pipeline if job.get("given") else make_train_pipeline(
         bool(cfg.augmentation), cfg.framework.input_size)
@@ -310,6 +309,9 @@ def _steps_job(job: dict, device, rank: int, world: int) -> dict:
            "param_bytes": parameter_bytes(model), "param_bytes_predicted": predicted["rank"],
            "param_bytes_whole": predicted["whole"],
            "sharded_keys": sharded}
+    if device.type == "cuda":
+        out["peak_mib"] = {"allocated": torch.cuda.max_memory_allocated(device) / 2**20,
+                           "reserved": torch.cuda.max_memory_reserved(device) / 2**20}
     if rank == 0:  # float32, without the frozen parameters (no gradient)
         keep = set(state) - {n for n, p in model.named_parameters() if not p.requires_grad}
         out["state_dict"] = {k: v.detach().cpu().float() if v.is_floating_point() else v.cpu()
@@ -376,7 +378,8 @@ def run_rank(spec: dict) -> None:
       records the losses, each step's ms and kernel launches, each tensor's
       norm after the steps (of the full grammar, gathered over the model
       group), the bytes of the parameters the rank holds beside the
-      layout's prediction, the sharded keys, and (rank 0) the state_dict in
+      layout's prediction, the sharded keys, on a card the job's peak
+      allocated and reserved MiB, and (rank 0) the state_dict in
       float32, less the frozen parameters, with ``grads`` the last step's
       gradients gathered, and with ``restore`` the state and the optimizer's
       state right after the restore and after the steps;
@@ -403,6 +406,8 @@ def run_rank(spec: dict) -> None:
                    "model_index": distributed.model_index(),
                    **JOBS[job["mode"]](job, device, rank, world)}
             torch.save(out, os.path.join(spec["out"], f"{job['name']}_rank{rank}.pt"))
+            if device.type == "cuda":  # the next job's model gets this one's cached blocks
+                torch.cuda.empty_cache()
             distributed.barrier(job["name"])
     finally:
         distributed.shutdown()

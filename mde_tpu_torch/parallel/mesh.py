@@ -35,27 +35,6 @@ def clamp_data_axis(requested: int, batch_size: int, n_devices: int) -> int:
     return max(requested, 1)
 
 
-# Families whose attention carries per-head tables (relative-position bias
-# tables, logit scales) that the model axis would have to slice with the
-# heads: not sharded yet (ROADMAP.md, Queue 1, item 5b-zoo).
-TP_PENDING_FAMILIES = ("beit", "swin", "next_vit")
-
-
-def _check_model_axis(model_cfg) -> None:
-    """Raise for a config whose model the model axis cannot shard yet: a
-    DPT of ``models.model_loader`` on a BEiT, Swin or Next-ViT trunk."""
-    from ..models.dpt import _family
-    from ..models.model_loader import DEFAULT_MODELS
-
-    spec = DEFAULT_MODELS.get(str(model_cfg.get("model_type", "")), (None,))[0]
-    family = _family(spec["backbone"]) if isinstance(spec, dict) else None
-    if family in TP_PENDING_FAMILIES:
-        raise ValueError(
-            f"framework.mesh.model > 1: tensor parallelism does not shard {family}'s attention "
-            "yet, whose per-head tables must be sliced with the heads (ROADMAP.md, Queue 1, "
-            "item 5b-zoo)")
-
-
 def mesh_world(cfg, device: str, batch_size: Optional[int] = None) -> tuple[int, int]:
     """(data, model): the data-parallel ranks and T, the ranks of one data
     index that share a model (``framework.mesh.model``), of a run whose
@@ -68,15 +47,12 @@ def mesh_world(cfg, device: str, batch_size: Optional[int] = None) -> tuple[int,
     visible cards; on the CPU, or with one named card (``cuda:N``, ranks
     sharing it), processes are not bounded by cards and -1 means one. Under
     a launcher the world is its process count, which the config must allow.
-    A model whose attention the model axis cannot shard raises
-    (``TP_PENDING_FAMILIES``).
+    Every model takes the model axis (``tp_layout`` says what a rank holds).
     """
     mesh = cfg.framework.get("mesh", {})
     model = int(mesh.get("model", 1))
     if model < 1:
         raise ValueError(f"framework.mesh.model={model}: at least 1")
-    if model > 1:
-        _check_model_axis(cfg.model)
     requested = int(mesh.get("data", -1))
     batch_size = int(cfg.training.batch_size if batch_size is None else batch_size)
     if dist.is_multiprocess():
@@ -165,39 +141,68 @@ def unwrap(model: torch.nn.Module) -> torch.nn.Module:
 # ------------------------------------------------------------ tensor parallel
 #
 # tp_param_spec's rule (mde_tpu/parallel/mesh.py:193-257) on the port's
-# names: the Linear weights of 'qkv', 'fc1', 'q', 'k', 'v' are column-parallel
-# (output features split) with their biases, those of 'proj' and 'fc2'
-# row-parallel (input features split; the bias whole); a dim that does not
-# divide by T stays replicated, and so does everything else.
+# modules: each attention and MLP declares what a model rank holds of it,
+# ``tp_linears`` (Linears below it by dotted path: "column" for qkv, fc1, q,
+# k, v, "row" for proj, fc2) and ``tp_heads`` (its own per-head
+# parameters). Everything no module declares stays replicated.
 
-TP_COLUMN = {"qkv", "fc1", "q", "k", "v"}
-TP_ROW = {"proj", "fc2"}
+
+def declared_parts(model: torch.nn.Module) -> dict:
+    """{state_dict key: (kind, head count of its owner or None)} for the
+    parts a module names in ``tp_linears`` (a Linear's weight, and a column
+    layer's bias with it) and ``tp_heads`` (its own parameters). A
+    ``tp_linears`` path must name an ``nn.Linear``."""
+    out = {}
+    for prefix, module in model.named_modules():
+        heads = getattr(module, "num_heads", None)
+        at = f"{prefix}." if prefix else ""
+        for path, kind in getattr(module, "tp_linears", {}).items():
+            if type(module.get_submodule(path)) is not torch.nn.Linear:
+                raise ValueError(f"{at}{path}: tensor parallelism shards an nn.Linear, not "
+                                 f"{type(module.get_submodule(path)).__name__}")
+            out[f"{at}{path}.weight"] = (kind, heads)
+            if kind == "column":
+                out[f"{at}{path}.bias"] = (kind, heads)
+        for name, kind in getattr(module, "tp_heads", {}).items():
+            out[f"{at}{name}"] = (kind, heads)
+    return out
 
 
 def tp_layout(model: torch.nn.Module, size: int) -> dict:
-    """Each key of ``model``'s (full) state_dict: "column", "row" or
-    "replicated" over ``size`` model ranks.
+    """Each key of ``model``'s (full) state_dict: how ``size`` model ranks
+    hold it. "column": split on dim 0 (a column layer's output features and
+    bias, a fused ``qkv`` head by head within q, k and v; a per-head
+    parameter with the heads first: BEiT's and Swin V2's ``q_bias`` and
+    ``v_bias``, V2's ``logit_scale`` and ``cpb_mlp.2``); "row": split on dim
+    1 (a row layer's input features; its bias whole); "heads": split on the
+    last dim (a relative-position bias table, (offsets, heads)); or
+    "replicated": every key no module declares (``declared_parts``), and a
+    declared one whose split does not divide by T.
 
-    One rule beyond ``tp_param_spec``'s: a Linear of a module with
-    ``num_heads`` (an attention) is sharded only where the heads divide by
-    T, so that each rank holds whole heads; elsewhere the attention stays
-    replicated. The math is the same either way: GSPMD may split a qkv
-    kernel between heads, and its collectives then give the same function.
+    Two rules beyond ``tp_param_spec``'s, which compute the same function
+    and which tests/test_torch_tensor_parallel.py and
+    tests/test_torch_tensor_parallel_zoo.py state against it:
+
+    - whole heads: a part of a module with ``num_heads`` (an attention) is
+      sharded only where the heads divide by T, so that each rank holds
+      whole heads; elsewhere the attention stays replicated, tables and
+      all (GSPMD may split a qkv kernel between heads, and its collectives
+      then give the same function);
+    - the per-head tables (``tp_heads``: BEiT's and Swin V1's bias tables,
+      V2's logit scales and the last layer of its position-bias MLP) are
+      sharded with their heads, where GSPMD keeps them whole and reshards
+      them: a head's rank holds what that head owns, so no table needs a
+      gradient all-reduce and AdamW's moments shard with it.
     """
-    modules = dict(model.named_modules())
+    from .tensor import split_dim
+
+    declared = declared_parts(model)
     layout = {}
     for key, t in model.state_dict(keep_vars=True).items():
-        parts = key.split(".")
-        leaf, mod = parts[-1], (parts[-2] if len(parts) > 1 else "")
-        kind = "replicated"
-        if leaf == "weight" and t.dim() == 2 and mod in TP_COLUMN and t.shape[0] % size == 0:
-            kind = "column"
-        elif leaf == "weight" and t.dim() == 2 and mod in TP_ROW and t.shape[1] % size == 0:
-            kind = "row"
-        elif leaf == "bias" and t.dim() == 1 and mod in TP_COLUMN and t.shape[0] % size == 0:
-            kind = "column"
-        heads = getattr(modules.get(".".join(parts[:-2])), "num_heads", None)
-        if kind != "replicated" and heads is not None and heads % size:
-            kind = "replicated"
+        kind, heads = declared.get(key, ("replicated", None))
+        if kind != "replicated":
+            dim, blocks = split_dim(key, kind, t.dim())
+            if (t.shape[dim] // blocks) % size or (heads is not None and heads % size):
+                kind = "replicated"
         layout[key] = kind
     return layout

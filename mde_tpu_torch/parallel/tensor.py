@@ -18,13 +18,19 @@ them out, one ``torch.autograd.Function`` a collective, over
 of its bias), ``RowParallelLinear`` a block of its input features, and adds
 its whole bias once, after the reduce. ``tensor_parallel(model, T)`` swaps
 the Linears that ``parallel.mesh.tp_layout`` shards for these, in place,
-with this rank's share of their weights, and keeps the parameter names: a
-rank's state_dict is the reference grammar at the sharded shapes.
-``shard_state_dict`` and ``gather_state_dict`` map between the full
-state_dict and the ranks' shares; a fused ``qkv`` weight (3 H D, C) is
-viewed as (3, H D, C) and rank r takes heads [r H / T, (r + 1) H / T) of each
-of q, k and v, so that its share is again a fused (3 (H / T) D, C) weight.
-Gathering inverts this bit for bit.
+with this rank's share of their weights, cuts an attention's per-head
+parameters (bias tables, logit scales, q and v biases) to this rank's
+heads, and keeps the parameter names: a rank's state_dict is the reference
+grammar at the sharded shapes. ``shard_state_dict`` and
+``gather_state_dict`` map between the full state_dict and the ranks'
+shares; a fused ``qkv`` weight (3 H D, C) is viewed as (3, H D, C) and rank
+r takes heads [r H / T, (r + 1) H / T) of each of q, k and v, so that its
+share is again a fused (3 (H / T) D, C) weight; a bias table (offsets, H)
+gives rank r the same heads on its last dim. Gathering inverts this bit
+for bit. An attention that calls ``F.linear`` on its column layer's weight
+itself (BEiT's and Swin V2's fused q/v bias) wraps the input in
+``copy_to_model`` as the layer would, so that the input's gradient is the
+sum over the ranks' heads.
 
 A replicated computation is not bitwise deterministic on a card (cuDNN's
 algorithms and ``F.interpolate``'s backward add with atomics), so the model
@@ -54,7 +60,8 @@ FUSED_BLOCKS = {"qkv": 3}
 
 class TPShare(NamedTuple):
     """What ``tensor_parallel`` did to a model: T, this rank's model index,
-    and the layout (each state_dict key: "column", "row" or "replicated")."""
+    and the layout (each state_dict key: "column", "row", "heads" or
+    "replicated", ``parallel.mesh.tp_layout``)."""
     size: int
     rank: int
     layout: dict
@@ -156,15 +163,19 @@ class RowParallelLinear(nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
-def _split(key: str, kind: str) -> tuple[int, int]:
-    """(dim of the torch tensor split, blocks it is viewed as) for a sharded
-    key: a column layer's weight and bias split their output features (dim
-    0), a fused projection's block by block; a row layer's weight its input
-    features (dim 1)."""
-    module = key.rsplit(".", 2)[-2] if key.count(".") else ""
+def split_dim(key: str, kind: str, ndim: int) -> tuple[int, int]:
+    """(dim of the torch tensor split, blocks it is viewed as) for a key of
+    ``kind`` (``parallel.mesh.tp_layout``) and ``ndim`` dims: "column" splits
+    dim 0, a fused projection's block by block; "row" dim 1; "heads" the
+    last dim (a bias table's heads)."""
     if kind == "column":
+        module = key.rsplit(".", 2)[-2] if key.count(".") else ""
         return 0, FUSED_BLOCKS.get(module, 1)
-    return 1, 1
+    if kind == "row":
+        return 1, 1
+    if kind == "heads":
+        return ndim - 1, 1
+    raise ValueError(f"{key}: unknown tensor-parallel kind {kind!r}")
 
 
 def shard_tensor(t: torch.Tensor, key: str, kind: str, size: int, rank: int) -> torch.Tensor:
@@ -172,7 +183,7 @@ def shard_tensor(t: torch.Tensor, key: str, kind: str, size: int, rank: int) -> 
     "replicated"."""
     if kind == "replicated":
         return t
-    dim, blocks = _split(key, kind)
+    dim, blocks = split_dim(key, kind, t.dim())
     v = t.unflatten(dim, (blocks, -1))
     per = v.shape[dim + 1] // size
     if per * size != v.shape[dim + 1]:
@@ -184,7 +195,7 @@ def gather_tensor(shares: list, key: str, kind: str) -> torch.Tensor:
     """The whole tensor from the ranks' shares, in rank order."""
     if kind == "replicated":
         return shares[0]
-    dim, blocks = _split(key, kind)
+    dim, blocks = split_dim(key, kind, shares[0].dim())
     return torch.cat([s.unflatten(dim, (blocks, -1)) for s in shares],
                      dim=dim + 1).flatten(dim, dim + 1)
 
@@ -272,16 +283,19 @@ def shard_optimizer_state(model: nn.Module, optimizer, state: dict) -> dict:
 
 
 def tensor_parallel(model: nn.Module, size: int) -> nn.Module:
-    """Swap ``model``'s Linears that ``parallel.mesh.tp_layout`` shards over
-    ``size`` ranks (the model axis ``distributed.set_model_axis`` made) for
-    ``ColumnParallelLinear`` / ``RowParallelLinear`` holding this process's
-    share, in place; record the ``TPShare`` as ``model.tp_share``. Returns
-    ``model``.
+    """Give ``model`` this process's share of every part ``parallel.mesh.
+    tp_layout`` shards over ``size`` ranks (the model axis
+    ``distributed.set_model_axis`` made), in place, and record the
+    ``TPShare`` as ``model.tp_share``. Returns ``model``.
 
-    A sharded Linear must be one its owner names in ``tp_linears`` (the ViT
-    attention and MLP, the flagship's cross-attention): an attention with
-    per-head tables (BEiT, Swin V1/V2, Next-ViT's) raises, ROADMAP item
-    5b-zoo. A model the layout leaves whole (the CNNs, LeViT) is unchanged.
+    The layout shards only what a module declares (``parallel.mesh.
+    declared_parts``): a Linear of its ``tp_linears`` (the ViT, BEiT, Swin
+    and Next-ViT attention, the MLP, the flagship's cross-attention, Swin
+    V2's position-bias MLP) becomes a ``ColumnParallelLinear`` /
+    ``RowParallelLinear``; a parameter of its ``tp_heads`` (a bias table, a
+    logit scale, BEiT's and V2's q and v biases) becomes its share, a new
+    ``nn.Parameter`` under the same name. A model the layout leaves whole
+    (the CNNs, LeViT) is unchanged.
     """
     from .mesh import tp_layout
 
@@ -291,27 +305,30 @@ def tensor_parallel(model: nn.Module, size: int) -> nn.Module:
     rank = dist.model_index()
     layout = tp_layout(model, size)
     modules = dict(model.named_modules())
-    swaps = {}
+    linears, params = {}, []
     for key, kind in layout.items():
         if kind == "replicated":
             continue
         path = key.rsplit(".", 1)[0]
+        if type(modules[path]) is nn.Linear:
+            linears[path] = layout[f"{path}.weight"]
+        else:
+            params.append(key)
+    for key in params:
+        path, _, name = key.rpartition(".")
+        t = getattr(modules[path], name)
+        share = shard_tensor(t.detach(), key, layout[key], size, rank).clone()
+        setattr(modules[path], name, nn.Parameter(share, requires_grad=t.requires_grad))
+    for path, kind in linears.items():
         owner_path, _, child = path.rpartition(".")
-        owner, linear = modules.get(owner_path), modules[path]
-        want = getattr(owner, "tp_linears", {}).get(child)
-        if want != kind or type(linear) is not nn.Linear:
-            raise ValueError(
-                f"{key}: tensor parallelism does not shard {type(owner).__name__}.{child} "
-                "(an attention with per-head tables: BEiT, Swin V1/V2 and Next-ViT wait for "
-                "ROADMAP.md, Queue 1, item 5b-zoo)")
-        swaps[path] = (owner, child, linear, kind)
-    for path, (owner, child, linear, kind) in swaps.items():
+        linear = modules[path]
         weight, bias = (None if t is None else
                         shard_tensor(t.detach(), f"{path}.{name}", layout[f"{path}.{name}"],
                                      size, rank).clone()
                         for name, t in (("weight", linear.weight), ("bias", linear.bias)))
         cls = ColumnParallelLinear if kind == "column" else RowParallelLinear
-        setattr(owner, child, cls(weight, bias).requires_grad_(linear.weight.requires_grad))
+        setattr(modules[owner_path], child,
+                cls(weight, bias).requires_grad_(linear.weight.requires_grad))
     model.tp_share = TPShare(size, rank, layout)
     return model
 

@@ -24,6 +24,7 @@ from ..core import config as config_lib
 from ..data.dataset import DepthDataset, split_train_val
 from ..data.loader import HostLoader
 from ..models.factory import build_model
+from ..models.model_loader import DEFAULT_MODELS
 from ..parallel import distributed, launch
 from ..parallel.mesh import mesh_world
 from ..parallel.tensor import tensor_parallel
@@ -63,6 +64,19 @@ def _override(cfg, item: str) -> None:
     cfg.merge_from(value)
 
 
+def apply_sets(cfg, sets):
+    """``cfg`` with each ``KEY=VALUE`` of ``sets`` applied, in order; a loader
+    DPT row's input size (``loader_input_size``) then becomes
+    ``framework.input_size`` unless one of ``sets`` names that key."""
+    for item in sets:
+        _override(cfg, item)
+    size = loader_input_size(cfg)
+    if size is not None and not any(s.split("=", 1)[0] == "framework.input_size"
+                                    for s in sets):
+        cfg.framework.input_size = list(size)
+    return cfg
+
+
 def parse_config(description: str, extra=None, argv=None):
     """Parse --config (YAML; the built-in flagship defaults when omitted),
     --device, --data-dir and any number of --set KEY=VALUE overrides, plus
@@ -81,8 +95,7 @@ def parse_config(description: str, extra=None, argv=None):
     cfg = config_lib.load(args.config) if args.config else config_lib.defaults()
     if args.data_dir:
         cfg.paths.data_dir = args.data_dir
-    for item in args.set:
-        _override(cfg, item)
+    apply_sets(cfg, args.set)
     if os.environ.get("MDE_DIST_CPU"):
         args.device = "cpu"  # every process of the run on the CPU, over gloo
     distributed.initialize_from_env(args.device)
@@ -199,10 +212,24 @@ def live_missing_keys(model, report: dict) -> list[str]:
             and not k.startswith(model.DEAD_KEY_PREFIXES)]
 
 
+def loader_input_size(cfg) -> Optional[tuple]:
+    """The input (h, w) a loader DPT row named by ``model.model_type`` is
+    built for (``model_loader.DEFAULT_MODELS``), or None for another model."""
+    spec, size, _ = DEFAULT_MODELS.get(cfg.model.model_type, (None, None, None))
+    return tuple(size) if isinstance(spec, dict) else None
+
+
 def bootstrap_model(cfg, device, checkpoint: Optional[str] = None):
     """Build the model with weights from ``cfg.framework.seed``, then load
     ``checkpoint`` when it exists, and move it to ``device`` (no default:
-    every caller names one). Returns (model, load report or None)."""
+    every caller names one). Returns (model, load report or None). A loader
+    DPT row raises unless ``framework.input_size`` is the size it is built
+    for."""
+    size = loader_input_size(cfg)
+    if size is not None and tuple(int(s) for s in cfg.framework.input_size) != size:
+        raise ValueError(f"model.model_type={cfg.model.model_type} is built for "
+                         f"{list(size)}, framework.input_size is "
+                         f"{list(cfg.framework.input_size)}")
     gen = torch.Generator().manual_seed(int(cfg.framework.seed))
     model = build_model(cfg.model, device="cpu", generator=gen)
     report = None

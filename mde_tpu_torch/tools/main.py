@@ -24,10 +24,12 @@ launcher in the environment, the tool starts data x T processes of itself, one a
 torchrun or the ``MDE_DIST_*`` variables each process joins instead. Rank p
 is data index p // T and model index p % T. At T > 1 each rank holds a
 Megatron share of every layer ``tp_param_spec`` shards
-(``parallel.tensor.tensor_parallel``: the ViT and DINOv2 attention and MLP,
-the flagship's cross-attention); a model the rule leaves whole (the CNNs,
-LeViT) runs replicated on the model ranks, and a BEiT, Swin or Next-ViT
-trunk raises (ROADMAP, Queue 1, item 5b-zoo). Each rank trains under
+(``parallel.tensor.tensor_parallel``: the ViT, DINOv2, BEiT, Swin V1/V2 and
+Next-ViT attention, with BEiT's and Swin's per-head tables, and MLP; the
+flagship's cross-attention); a model the rule leaves whole (the CNNs,
+LeViT) runs replicated on the model ranks. The loader's DPTs train from
+``--set model.model_type=<row>`` (``dpt_swin2_tiny_256`` ...), and the
+config takes the row's input size as ``framework.input_size``. Each rank trains under
 ``DistributedDataParallel`` over its data group with the cross-process
 BatchNorm on its data index's rows of every batch; rank 0 alone logs and
 writes the checkpoint, the full reference grammar gathered from the model

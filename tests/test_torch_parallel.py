@@ -10,8 +10,8 @@ JAX package's mesh, on the CPU over gloo.
   microbatch (``mde_tpu/train/trainer.py:226-231``).
 - ``mesh_world`` (and the examples' ``data_world``) and
   ``initialize_from_env``: the world a config and a launcher give, (data,
-  model) as ``make_training_mesh`` gives it, the model axis refused for a
-  BEiT or Swin trunk (ROADMAP item 5b-zoo).
+  model) as ``make_training_mesh`` gives it, the model axis taken for the
+  BEiT, Swin V1/V2 and Next-ViT trunks too.
 - Two gloo processes (``mde_tpu_torch.parallel.launch``: workers that import
   nothing of the JAX package), started once for the module:
   (a) the cross-process BatchNorm on 2 + 2 rows against ``nn.BatchNorm2d``
@@ -190,8 +190,8 @@ def test_data_world_clamps_and_refuses_the_model_axis(monkeypatch):
     """``mesh_world``'s contract (it took ``data_world``'s place): the data
     axis clamped as before and (data, model) as ``make_training_mesh`` gives
     them, usable cards = cards // model; the model axis taken for the
-    flagship and refused, naming ROADMAP item 5b-zoo, for a BEiT or a Swin
-    trunk."""
+    flagship and for a BEiT, a Swin V1, a Swin V2 and the Next-ViT trunk
+    (the test keeps the name it had when it checked their refusal)."""
     cfg = config.defaults()
     cfg.training.batch_size = 6
     for requested, device, want in ((-1, "cpu", 1), (4, "cpu", 3), (2, "cuda:0", 2),
@@ -218,10 +218,10 @@ def test_data_world_clamps_and_refuses_the_model_axis(monkeypatch):
     assert mesh.mesh_world(cfg, "cpu") == (1, 2)
     with pytest.raises(ValueError, match="examples"):
         mesh.data_world(cfg, "cpu")
-    for name in ("dpt_beit_base_384", "dpt_swin2_tiny_256"):
+    for name in ("dpt_beit_base_384", "dpt_swin_large_384", "dpt_swin2_tiny_256",
+                 "dpt_next_vit_large_384"):
         cfg.model.model_type = name
-        with pytest.raises(ValueError, match="item 5b-zoo"):
-            mesh.mesh_world(cfg, "cpu")
+        assert mesh.mesh_world(cfg, "cpu") == (1, 2), name
 
 
 @pytest.mark.parametrize("env,want", [
